@@ -2,19 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds plane A (g++) and the CUDA post-filter kernel (nvcc, sm_90a) from
-the sources in the checkout, holds the kernel to its plain torch version
-at the serving shapes, then serves 1024 stereo 48 kHz CELT streams (20 ms
-frames at 96 kbps, payloads from the repo's native encoder, one step with
-lost packets) through BatchedCeltDecoder(transfer="p10") and checks the
-first four streams against the scalar CeltDecoder: equal final ranges,
-PCM within 4e-3 and a conformance score of at least PASS_QUALITY.
+Builds plane A (g++) and the CUDA kernels (nvcc, sm_90a; post-filter and
+spreading rotation) from the sources in the checkout, in parallel, and
+holds each kernel to its plain torch version at the serving shapes.  Then
+it serves 1024 stereo 48 kHz CELT streams (20 ms frames at 96 kbps,
+payloads from the port's native encoder) through both serving paths of
+BatchedCeltDecoder:
 
-Prints the card's name and power limit, the kernel's and the plain
-version's times, the serve rate end to end and the device step time, a
-JSON line describing each kernel, and as its last line
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
-without a CUDA device it exits non-zero before doing anything.
+* transfer="p10", 13 steps, one of them with lost packets: the post-filter
+  kernel must launch on every step with an active filter;
+* transfer="plan", the same 13 steps without the losses (the plan path
+  does not serve pitch-regime losses yet): no step may fall back to the
+  q14 spectrum, the rotation kernel must launch twice per step, the
+  post-filter as on the p10 path.  The inputs of the first step's two
+  rotation passes are recorded, and the kernel is held to its plain
+  version on those real chains too.
+
+Streams 0-3 of each card run are checked against the port's own CPU run
+of the same packets at B=4 (streams decode independently): equal final
+ranges, PCM within 1e-4.  Prints the card's name and power limit, the
+kernels' and plain versions' times, the serve rates end to end, the
+device step times, a JSON line describing each kernel, and as its last
+line {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero; without a CUDA device it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -32,9 +43,13 @@ B, C, FRAME, NBYTES = 1024, 2, 960, 240  # 240 B per 20 ms = 96 kbps
 STEPS = 13
 LOST_STEP = 6
 W = 2048  # post-filter row: DECODE_BUFFER_SIZE samples of history + frame
-KERNEL_CASES = [(3, 12), (3, 60), (3, 120), (3, 240), (2, 60), (1, 12), (0, 12), (0, 240)]
-KERNEL_REL_TOL = 1e-6  # the reference's own gate (tests/test_pallas_pf.py)
-PCM_TOL = 4e-3  # the reference's p10 gate against the scalar decoder
+PF_CASES = [(3, 12), (3, 60), (3, 120), (3, 240), (2, 60), (1, 12), (0, 12), (0, 240)]
+PF_REL_TOL = 1e-6  # the reference's own gate (tests/test_pallas_pf.py)
+ROT_ABS_TOL = 2e-6  # the reference's scalar gate (tests/test_pallas_rot.py)
+ROT_LENGTHS = [1, 1, 2, 3, 5, 8, 21, 44, 87, 176]
+CPU_PCM_TOL = 1e-4  # card run vs the port's CPU run, streams 0-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 
 def card() -> str:
@@ -59,6 +74,48 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time the card could take: bytes over HBM rate or operations
+    over the float32 peak, whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def build() -> None:
+    """Plane A (g++) and the CUDA kernels (nvcc) at once, from the checkout."""
+    from opus_tpu_torch import _build
+    from opus_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    done, errors = {}, []
+
+    def plane_a():
+        try:
+            native_build.build()
+            done["plane A"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    th = threading.Thread(target=plane_a)
+    th.start()
+    try:
+        so = _build.build()
+        done["CUDA kernels"] = time.perf_counter() - t0
+    finally:
+        th.join()
+    if errors:
+        raise errors[0]
+    print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in done.items()))
+    print(so.with_suffix(".log").read_text().strip())
+
+
+def cycled(make, copies: int):
+    """fn() calling make(inputs) on `copies` copies in turn, so that each
+    call finds its inputs outside the 50 MB L2, as the serving step does."""
+    turn = iter(range(10**9))
+    return lambda: make(copies[next(turn) % len(copies)])
+
+
 def postfilter_inputs(lm, chunk, seed, dev):
     """Serving-shape post-filter inputs: rows 0-7 zero-gain with garbage
     lags, rows 8-15 with filter 1 equal to filter 0."""
@@ -74,45 +131,91 @@ def postfilter_inputs(lm, chunk, seed, dev):
     return [torch.tensor(a, device=dev) for a in (y, periods, gains, tapsets)]
 
 
-def kernel_phase(dev, where: str) -> dict:
+def postfilter_phase(dev, where: str) -> dict:
     """Post-filter kernel vs _postfilter_ref on the card, every case."""
     from opus_tpu_torch.dsp.postfilter import _postfilter_ref, postfilter
 
-    before = postfilter.launches
     max_abs = max_rel = 0.0
     times = {}
-    for lm, chunk in KERNEL_CASES:
+    for lm, chunk in PF_CASES:
         n = 120 << lm
         y, periods, gains, tapsets = postfilter_inputs(lm, chunk, 100 * lm + chunk, dev)
         ref = _postfilter_ref(y.clone(), W - n, n, lm, periods, gains, tapsets, chunk)
         got = postfilter(y.clone(), W - n, n, lm, periods, gains, tapsets, chunk)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"kernel output not finite at lm={lm} chunk={chunk}")
+            raise AssertionError(f"post-filter output not finite at lm={lm} chunk={chunk}")
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         print(f"kernel postfilter lm={lm} chunk={chunk}: max_abs_err={err} max_rel_err={rel}")
-        if not rel < KERNEL_REL_TOL:
-            raise AssertionError(f"kernel disagrees with plain version: rel {rel} at "
-                                 f"lm={lm} chunk={chunk}")
+        if not rel < PF_REL_TOL:
+            raise AssertionError(f"post-filter kernel disagrees with plain version: rel {rel} "
+                                 f"at lm={lm} chunk={chunk}")
         max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
         if lm == 3:
-            # Cycle four copies (67 MB, beyond the 50 MB L2) so each call
-            # finds its row cold, as the serving step does.
+            # Four copies (67 MB) cycle beyond the 50 MB L2.
             ys = [y.clone() for _ in range(4)]
-            turn = iter(range(10**9))
 
             def run(fn):
-                return lambda: fn(ys[next(turn) % 4], W - n, n, lm, periods, gains, tapsets, chunk)
+                return cycled(lambda yy: fn(yy, W - n, n, lm, periods, gains, tapsets, chunk), ys)
 
             times[chunk] = (cuda_ms(run(postfilter), 40), cuda_ms(run(_postfilter_ref), 5))
             print(f"time postfilter B={B} C={C} lm=3 chunk={chunk}: kernel_ms={times[chunk][0]} "
                   f"plain_ms={times[chunk][1]} ({where})")
-    launched = postfilter.launches - before
-    if launched < len(KERNEL_CASES):
-        raise AssertionError(f"kernel launch count rose by {launched}, expected "
-                             f">= {len(KERNEL_CASES)}")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, "times": times}
+
+
+def rotation_inputs(seed: int, n2: int, dev):
+    """x ~ N(0,1) [B, n2] with random chain geometry: chain lengths from
+    ROT_LENGTHS, one chain in five with identity coefficients."""
+    rng = np.random.default_rng(seed)
+    k_pos = np.zeros((B, n2), np.int32)
+    m_pos = np.ones((B, n2), np.int32)
+    cc = np.ones((B, n2), np.float32)
+    ss = np.zeros((B, n2), np.float32)
+    for r in range(B):
+        t = 0
+        while t < n2:
+            m = min(int(rng.choice(ROT_LENGTHS)), n2 - t)
+            th = 0.5 * rng.uniform(0.1, 1.0) ** 2
+            k_pos[r, t : t + m] = np.arange(m)
+            m_pos[r, t : t + m] = m
+            if rng.random() < 0.8:
+                cc[r, t : t + m] = np.cos(0.5 * np.pi * th)
+                ss[r, t : t + m] = np.cos(0.5 * np.pi * (1.0 - th))
+            t += m
+    x = rng.standard_normal((B, n2)).astype(np.float32)
+    return [torch.tensor(a, device=dev) for a in (x, cc, ss, k_pos, m_pos)]
+
+
+def rotation_phase(dev, where: str) -> dict:
+    """Rotation kernel vs _rot_pass_ref on the card, at the lm=3 and lm=2
+    planes; times at lm=3."""
+    from opus_tpu_torch.dsp.rotation import _rot_pass_ref, rot_pass
+
+    max_abs = 0.0
+    times = None
+    for lm in (3, 2):
+        n2 = 2 * (120 << lm)
+        args = rotation_inputs(30 + lm, n2, dev)
+        ref = _rot_pass_ref(*args)
+        got = rot_pass(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rotation output not finite at n2={n2}")
+        err = float((got - ref).abs().max())
+        print(f"kernel rotation B={B} n2={n2}: max_abs_err={err}")
+        if not err < ROT_ABS_TOL:
+            raise AssertionError(f"rotation kernel disagrees with plain version: {err} at n2={n2}")
+        max_abs = max(max_abs, err)
+        if lm == 3:
+            # Three copies of the five planes (141 MB) cycle beyond L2.
+            sets = [[a.clone() for a in args] for _ in range(3)]
+            times = (cuda_ms(cycled(lambda a: rot_pass(*a), sets), 40),
+                     cuda_ms(cycled(lambda a: _rot_pass_ref(*a), sets), 5))
+            print(f"time rotation B={B} n2={n2}: kernel_ms={times[0]} plain_ms={times[1]} "
+                  f"({where})")
+    return {"max_abs_err": max_abs, "times": times}
 
 
 def make_payloads(seed: int = 1) -> list:
@@ -120,9 +223,9 @@ def make_payloads(seed: int = 1) -> list:
 
     Each stream is a tone (220-880 Hz) plus noise, with a click every
     4801 samples at a stream-dependent phase so that some frames code
-    short blocks; in step LOST_STEP every third stream's packet is lost.
+    short blocks.
     """
-    from opus_tpu.native.frontend import NativeCeltEncoderBatch
+    from opus_tpu_torch.native.frontend import NativeCeltEncoderBatch
 
     rng = np.random.default_rng(seed)
     f0 = 220.0 * 2.0 ** ((np.arange(B) % 24) / 12.0)
@@ -136,83 +239,173 @@ def make_payloads(seed: int = 1) -> list:
         pos = f * FRAME + np.arange(FRAME)
         sig += 0.9 * (((pos[None, :] + 97 * np.arange(B)[:, None]) % 4801) == 0)
         pcm = np.stack([sig, 0.8 * np.roll(sig, 7, axis=1)], -1).astype(np.float32)
-        pay = enc.encode_batch(pcm, NBYTES)
-        batches.append([None if f == LOST_STEP and i % 3 == 0 else bytes(pay[i])
-                        for i in range(B)])
+        batches.append([bytes(p) for p in enc.encode_batch(pcm, NBYTES)])
     return batches
 
 
-def main_path(dev, batches) -> dict:
-    """Serve every step through the port; keep streams 0-3's PCM."""
-    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+def with_losses(batches) -> list:
+    """In step LOST_STEP every third stream's packet is lost."""
+    return [[None if f == LOST_STEP and i % 3 == 0 else p for i, p in enumerate(pk)]
+            for f, pk in enumerate(batches)]
+
+
+def serve_steps(dec, batches) -> dict:
+    """Serve one step per call; keep streams 0-3's PCM and each step's
+    post-filter activity (from the slot the step used)."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
-    dec = BatchedCeltDecoder(B, C, transfer="p10", device=dev)
     pcm, chunks = [], []
     for packets in batches:
+        fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets], FRAME)
         ring = dec._serve_ring
-        if tuple(ring.shape) != (B, FRAME, C) or not bool(torch.isfinite(ring).all()):
-            raise AssertionError(f"serve produced {tuple(ring.shape)} PCM or non-finite values")
-        if not np.isfinite(digest).all():
-            raise AssertionError("serve digest not finite")
+        if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
+            raise AssertionError("serve produced non-finite PCM")
         pcm.append(ring[:4].cpu().numpy().copy())  # the ring is rewritten in place
-        slot = dec._slots[0]  # one step per call: the step's slot
+        if dec.transfer != "plan":
+            slot = dec._slots[0]
+        elif dec.plan_fallbacks > fallbacks:
+            slot = dec._plan_q14_slots[(dec.plan_fallbacks - 1) % 2]
+        else:
+            slot = dec._plan_slots[0]
         chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
         chunks.append(chunk if active else None)
+    if tuple(ring.shape) != (dec.batch, FRAME, C):
+        raise AssertionError(f"serve produced {tuple(ring.shape)} PCM")
     return {"pcm": np.concatenate(pcm, axis=1), "ranges": dec.final_ranges()[:4],
             "chunks": chunks}
 
 
-def scalar_check(batches, got: dict) -> None:
-    """Streams 0-3 against the scalar CeltDecoder (bit-exact ranges)."""
-    from opus_tpu.celt.decoder import CeltDecoder
-    from opus_tpu.conformance import PASS_QUALITY, compare
+def recording_rot_inputs(captured: list, n: int):
+    """Context manager: while it is open, the plan executor's rotation
+    passes go through the kernel as before, and the inputs of the first
+    `n` are cloned into `captured`."""
+    import contextlib
 
-    for i in range(4):
-        dec = CeltDecoder(C, 1)
-        ref = []
-        for packets in batches:
-            if packets[i] is None:
-                dec.skip_plc = True  # plane A conceals in the noise regime
-            ref.append(dec.decode(packets[i], FRAME))
-        ref = np.concatenate(ref)
-        err = float(np.abs(got["pcm"][i] - ref).max())
-        q = compare(ref, got["pcm"][i])
-        print(f"stream {i}: final_range {got['ranges'][i]} vs scalar {dec.rng}, "
-              f"max_abs_err={err}, conformance={q}")
-        if got["ranges"][i] != dec.rng:
-            raise AssertionError(f"stream {i}: final range differs from the scalar decoder")
-        if not err < PCM_TOL or not q >= PASS_QUALITY:
-            raise AssertionError(f"stream {i}: PCM err {err} / quality {q} out of gate")
+    from opus_tpu_torch.dsp import plan_exec
+
+    real = plan_exec.rot_pass
+
+    def recording(*args):
+        if len(captured) < n:
+            captured.append([a.clone() for a in args])
+        return real(*args)
+
+    @contextlib.contextmanager
+    def patched():
+        plan_exec.rot_pass = recording
+        try:
+            yield
+        finally:
+            plan_exec.rot_pass = real
+
+    return patched()
 
 
-def serve_rate(dev, batches, where: str) -> dict:
-    """End-to-end serve rate and the device step time, at B=1024."""
+def rotation_on_real_chains(captured: list) -> float:
+    """The rotation kernel vs _rot_pass_ref on recorded main-path inputs."""
+    from opus_tpu_torch.dsp.rotation import _rot_pass_ref, rot_pass
+
+    max_abs = 0.0
+    for name, args in zip(("A", "B"), captured):
+        got, ref = rot_pass(*args), _rot_pass_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        heads = args[3] == 0
+        chains = int(heads.sum())
+        long_chains = int((heads & (args[4] >= 3)).sum())
+        print(f"kernel rotation on plan step pass {name} B={B} n2={args[0].shape[1]}: "
+              f"{chains} chains, {long_chains} of length >= 3, max_abs_err={err}")
+        if long_chains == 0:
+            raise AssertionError(f"plan step pass {name} rotated no chain of length >= 3")
+        if not bool(torch.isfinite(got).all()) or not err < ROT_ABS_TOL:
+            raise AssertionError(f"rotation kernel disagrees with plain version on the plan "
+                                 f"step's pass {name}: {err}")
+        max_abs = max(max_abs, err)
+    return max_abs
+
+
+def main_path(dev, transfer: str, batches) -> dict:
+    """Serve every step through the port at B=1024 with the launch counts
+    set to 0 just before and read just after; then check streams 0-3
+    against the port's CPU run of the same packets at B=4.  On the plan
+    transfer no step may fall back to q14, and the rotation kernel is
+    held to its plain version on the first step's recorded inputs."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
-    from opus_tpu_torch.dsp.synthesis import init_state, make_serving_step
-    from opus_tpu_torch.dsp.tables import pf_chunk_for
+    from opus_tpu_torch.dsp.postfilter import postfilter
+    from opus_tpu_torch.dsp.rotation import rot_pass
 
-    dec = BatchedCeltDecoder(B, C, transfer="p10", device=dev)
+    dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
+    captured = []
+    with recording_rot_inputs(captured, 2):
+        postfilter.launches = 0
+        rot_pass.launches = 0
+        got = serve_steps(dec, batches)
+        launches = {"postfilter": postfilter.launches, "rotation": rot_pass.launches}
+    active = sum(c is not None for c in got["chunks"])
+    plan_steps = len(batches) if transfer == "plan" else 0
+    print(f"main path {transfer}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
+          f"plan fallbacks {dec.plan_fallbacks}, kernel launches {launches}")
+    if dec.plan_fallbacks:
+        raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} plan steps fell back "
+                             f"to the q14 spectrum")
+    if launches["postfilter"] == 0 or launches["postfilter"] != active:
+        raise AssertionError(f"post-filter kernel launched {launches['postfilter']} times over "
+                             f"{active} post-filter steps")
+    if launches["rotation"] != 2 * plan_steps:
+        raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
+                             f"{plan_steps} plan steps (2 passes each)")
+    rot_err = rotation_on_real_chains(captured) if transfer == "plan" else None
+
+    cpu = BatchedCeltDecoder(4, C, transfer=transfer, device="cpu")
+    want = serve_steps(cpu, [pk[:4] for pk in batches])
+    for i in range(4):
+        err = float(np.abs(got["pcm"][i] - want["pcm"][i]).max())
+        print(f"stream {i} {transfer}: final_range {got['ranges'][i]} vs CPU "
+              f"{want['ranges'][i]}, max_abs_err={err}")
+        if got["ranges"][i] != want["ranges"][i]:
+            raise AssertionError(f"stream {i}: final range differs from the CPU run")
+        if not err < CPU_PCM_TOL:
+            raise AssertionError(f"stream {i}: PCM err {err} against the CPU run")
+    return {"launches": launches, "chunks": got["chunks"], "rot_err": rot_err}
+
+
+def serve_rate(dev, transfer: str, batches, where: str) -> float:
+    """End-to-end serve rate, audio-s/s at B=1024: median of 5 runs of
+    every step after a warm-up run (each ends by fetching the digest).
+    A plan rate counts only when no step fell back to q14."""
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+
+    dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
     dec.serve(batches, FRAME)  # warm-up: cuBLAS, step factories, slots
     runs = []
     for _ in range(5):
         t0 = time.perf_counter()
-        dec.serve(batches, FRAME)  # ends by fetching the digest: a sync
+        dec.serve(batches, FRAME)
         runs.append(time.perf_counter() - t0)
+    if dec.plan_fallbacks:
+        raise AssertionError(f"{dec.plan_fallbacks} {transfer} steps fell back to q14 "
+                             f"while timing the rate")
     audio_s = B * len(batches) * FRAME / 48000.0
     rates = sorted(audio_s / r for r in runs)
-    print(f"serve e2e B={B} p10 {len(batches)} steps/run: audio_s_per_s median="
+    print(f"serve e2e B={B} {transfer} {len(batches)} steps/run: audio_s_per_s median="
           f"{statistics.median(rates)} runs={rates} ({where})")
+    return statistics.median(rates)
 
+
+def p10_device(dev, batches, where: str) -> None:
+    """Plane A time and the device step time of the p10 path."""
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.synthesis import init_state, make_serving_step
+    from opus_tpu_torch.dsp.tables import packed_offsets, pf_chunk_for
+
+    dec = BatchedCeltDecoder(B, C, transfer="p10", device=dev)
     slot = dec._alloc_slots(1, "p10")[0]
     plane_a = []
     for packets in batches:
         t0 = time.perf_counter()
         dec.native.decode_batch_q15_into(packets, FRAME, slot)
         plane_a.append(time.perf_counter() - t0)
-    print(f"plane A host decode B={B}: ms/step median={statistics.median(plane_a) * 1e3} "
-          f"({where})")
     chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
     lm = int(slot["meta"][0, 2])
     step = make_serving_step(lm, B, C, pf_chunk=chunk, pf_active=active, transfer="p10",
@@ -221,9 +414,39 @@ def serve_rate(dev, batches, where: str) -> dict:
     state = init_state(B, C, device=dev)
     ring = torch.zeros(B, FRAME, C, device=dev)
     step_ms = cuda_ms(lambda: step(state, ring, buf), 30)
+    print(f"plane A p10 B={B}: ms/step median={statistics.median(plane_a) * 1e3} ({where})")
     print(f"device step B={B} p10 lm={lm} chunk={chunk}: ms={step_ms} audio_s_per_s="
-          f"{B * FRAME / 48000.0 / (step_ms / 1e3)} ({where})")
-    return {"e2e": statistics.median(rates), "step_ms": step_ms}
+          f"{B * FRAME / 48000.0 / (step_ms / 1e3)} upload_words="
+          f"{packed_offsets(B, 'p10')['end']} ({where})")
+
+
+def plan_device(dev, batches, where: str) -> None:
+    """Plane A plan time, upload words per step and the plan device step."""
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.synthesis import init_state
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+
+    dec = BatchedCeltDecoder(B, C, transfer="plan", device=dev)
+    slot = dec._alloc_plan_slots(1)[0]
+    plane_a, words, classes = [], [], []
+    for packets in batches:
+        t0 = time.perf_counter()
+        dec.native.decode_batch_plan_into(packets, FRAME, slot)
+        plane_a.append(time.perf_counter() - t0)
+        words.append(dec._plan_upload_words(slot))
+        classes.append(dec._plan_size_class(slot))
+    chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+    lm = int(slot["meta"][0, 2])
+    step = dec._plan_serving_step(lm, chunk, active, classes[-1])
+    buf = slot["host"][: words[-1]].to(dev)
+    state = init_state(B, C, device=dev)
+    ring = torch.zeros(B, FRAME, C, device=dev)
+    step_ms = cuda_ms(lambda: step(state, ring, buf), 30)
+    print(f"plane A plan B={B}: ms/step median={statistics.median(plane_a) * 1e3} ({where})")
+    print(f"upload plan B={B}: words/step median={statistics.median(words)} "
+          f"per_stream={statistics.median(words) / B} classes={sorted(set(classes))}")
+    print(f"device step B={B} plan lm={lm} chunk={chunk} words={words[-1]} class={classes[-1]}: "
+          f"ms={step_ms} audio_s_per_s={B * FRAME / 48000.0 / (step_ms / 1e3)} ({where})")
 
 
 def main() -> int:
@@ -237,40 +460,54 @@ def main() -> int:
     dev = torch.device("cuda")
 
     import opus_tpu_torch  # noqa: F401  (sets full-fp32 matmuls)
-    from opus_tpu.native.frontend import NativeBatchFrontEnd
-    from opus_tpu_torch import _build
-    from opus_tpu_torch.dsp.postfilter import postfilter
 
-    t0 = time.perf_counter()
-    NativeBatchFrontEnd(1, C)  # builds plane A (g++) at first load
-    t1 = time.perf_counter()
-    _build.library()  # builds csrc/*.cu (nvcc) unless built for these sources
-    t2 = time.perf_counter()
-    print(f"build: plane A {t1 - t0:.1f} s, CUDA kernels {t2 - t1:.1f} s")
+    build()
+    pf = postfilter_phase(dev, where)
+    rot = rotation_phase(dev, where)
 
-    k = kernel_phase(dev, where)
+    clean = make_payloads()
+    lossy = with_losses(clean)
+    p10 = main_path(dev, "p10", lossy)
+    plan = main_path(dev, "plan", clean)
 
-    batches = make_payloads()
-    postfilter.launches = 0
-    got = main_path(dev, batches)
-    launches = postfilter.launches
-    active_steps = sum(c is not None for c in got["chunks"])
-    print(f"main path: {STEPS} steps, post-filter chunks {got['chunks']}, "
-          f"kernel launches {launches}")
-    if launches == 0 or launches != active_steps:
-        raise AssertionError(f"post-filter kernel launched {launches} times over "
-                             f"{active_steps} post-filter steps")
-    scalar_check(batches, got)
+    rate_p10 = serve_rate(dev, "p10", lossy, where)
+    rate_plan = serve_rate(dev, "plan", clean, where)
+    p10_device(dev, lossy, where)
+    plan_device(dev, clean, where)
+    print(f"serve e2e summary B={B}: p10={rate_p10} plan={rate_plan} audio_s_per_s, "
+          f"plan fallbacks 0 ({where})")
 
-    rate = serve_rate(dev, batches, where)
-    main_chunk = max(set(c for c in got["chunks"] if c), key=got["chunks"].count)
-    kernel_ms, plain_ms = k["times"][main_chunk]
-    print(json.dumps({"kernels": [{
-        "name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
-        "replaces": "opus_tpu/dsp/pallas_pf.py:89", "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "shape": f"B={B} C={C} lm=3 chunk={main_chunk}",
-    }]}))
+    chunks = [c for c in p10["chunks"] + plan["chunks"] if c]
+    main_chunk = max(set(chunks), key=chunks.count)
+    pf_ms, pf_plain_ms = pf["times"][main_chunk]
+    # Post-filter at the serving shape: y [B, C, W] read, the frame region
+    # [B, C, 960] written, lags/taps per row, 3 filter envelopes; per
+    # output sample 3 filters x (5 taps: 3 mul + 4 add, envelope mul + add).
+    pf_bytes = B * C * W * 4 + B * C * 960 * 4 + B * C * 12 * 4 + 3 * W * 4
+    pf_bound, pf_by = bound_ms(pf_bytes, B * C * 960 * 3 * 9)
+    # Rotation at the plan step's plane: x, cc, ss, k_pos, m_pos read,
+    # out written; about 12 operations per element over both recurrences.
+    n2 = 1920
+    rot_bound, rot_by = bound_ms(6 * B * n2 * 4, 12 * B * n2)
+    print(json.dumps({"kernels": [
+        {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
+         "replaces": "opus_tpu/dsp/pallas_pf.py:89",
+         "launches": p10["launches"]["postfilter"] + plan["launches"]["postfilter"],
+         "launches_by_path": {"p10": p10["launches"]["postfilter"],
+                              "plan": plan["launches"]["postfilter"]},
+         "max_abs_err": pf["max_abs_err"], "ms": pf_ms, "plain_ms": pf_plain_ms,
+         "bound_ms": pf_bound, "bound_by": pf_by, "library_ms": None,
+         "shape": f"B={B} C={C} lm=3 chunk={main_chunk}"},
+        {"name": "rotation", "route": "cuda", "source": "opus_tpu_torch/csrc/rotation.cu",
+         "replaces": "opus_tpu/dsp/pallas_rot.py:46",
+         "launches": plan["launches"]["rotation"],
+         "launches_by_path": {"p10": p10["launches"]["rotation"],
+                              "plan": plan["launches"]["rotation"]},
+         "max_abs_err": max(rot["max_abs_err"], plan["rot_err"]),
+         "ms": rot["times"][0], "plain_ms": rot["times"][1],
+         "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None,
+         "shape": f"B={B} n2={n2}"},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

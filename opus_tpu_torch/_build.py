@@ -21,7 +21,7 @@ _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "csrc"
 _OUT = _HERE / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -36,7 +36,11 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless a library for these sources exists."""
+    """Compile csrc/*.cu unless a library for these sources exists.
+
+    One nvcc per source, all started together, then one link; the
+    compilers' resource report (-Xptxas=-v) is kept beside the library
+    as <library>.log."""
     srcs = sorted(_SRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in srcs:
@@ -46,12 +50,25 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     _OUT.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [_OUT / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}{res.stderr}")
+    for o in objs:
+        o.unlink()
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 
@@ -63,4 +80,6 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.opus_postfilter.restype = i
     lib.opus_postfilter.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.opus_rot_pass.restype = i
+    lib.opus_rot_pass.argtypes = [p, p, p, p, p, p, i, i, p]
     return lib

@@ -1,10 +1,13 @@
 """Batch-of-streams CELT decode on a torch device (the port of
 opus_tpu.batch.pipeline.BatchedCeltDecoder).
 
-* Plane A (host): the native C++ front end, opus_tpu.native.frontend,
-  walks every stream's range-coded symbols in one call per step.
+* Plane A (host): the port's copy of the native C++ front end,
+  opus_tpu_torch.native.frontend, walks every stream's range-coded
+  symbols in one call per step.
 * Plane B (device): the synthesis steps of opus_tpu_torch.dsp.synthesis
-  turn the whole batch's planes into PCM at once.
+  turn the whole batch's planes into PCM at once; on the plan transfer
+  the plan executor (dsp/plan_exec.py) first rebuilds the band spectra
+  from plane A's pulse-vector plan.
 """
 
 from __future__ import annotations
@@ -12,16 +15,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from opus_tpu.celt import modes
-from opus_tpu.native.frontend import NativeBatchFrontEnd
-
+from ..celt import modes
 from ..dsp.synthesis import (
     SynthState,
     init_state,
     make_pipeline_step,
+    make_plan_serving_step,
     make_serving_step,
 )
 from ..dsp.tables import PACK_BITS, XQ_WORDS, packed_offsets, pf_chunk_for
+from ..native.frontend import (
+    PLAN_ARENA_WORDS,
+    PLAN_FIXED_WORDS,
+    NativeBatchFrontEnd,
+    plan_slot_views,
+)
 
 TRANSFERS = ("f32", "q14", "p12", "p10", "p8", "plan")
 
@@ -32,8 +40,15 @@ class BatchedCeltDecoder:
     transfer: "f32" = exact float band shapes; "q14" = int16 Q14 shapes;
     "p12"/"p10"/"p8" = bit-packed mantissas with the band exponents folded
     into the energy plane (serve() only; decode_frames uses q14 precision
-    for every quantised mode); "plan" = the plan executor, not yet ported.
+    for every quantised mode); "plan" = plane A's pulse-vector plan, the
+    spectra rebuilt on the device by the plan executor (serve() only).
     """
+
+    #: Plan executor size classes (p_max, f_max, iyw): the leaf-table and
+    #: pulse-word windows.  The serve loop picks the smallest class the
+    #: step's maxima fit (96 kbps stereo music measures pvq <= 105,
+    #: fill <= 3, iyw <= 114); anything larger runs the full class.
+    PLAN_CLASSES = ((112, 8, 128), (160, 16, 160), (224, 64, 192))
 
     def __init__(self, batch: int, channels: int = 2, downsample: int = 1,
                  transfer: str = "f32", *, device):
@@ -47,6 +62,8 @@ class BatchedCeltDecoder:
         self.native = NativeBatchFrontEnd(batch, channels, downsample)
         self.state = init_state(batch, channels, device=self.device)
         self._steps: dict = {}
+        #: plan steps served as a q14 spectrum because the plan overflowed
+        self.plan_fallbacks = 0
 
     def _pipe_step_fn(self, lm: int, short_blocks: bool):
         key = ("raw", lm, short_blocks)
@@ -119,17 +136,34 @@ class BatchedCeltDecoder:
             )
         return self._steps[key]
 
+    def _plan_serving_step(self, lm: int, pf_chunk: int, pf_active: bool,
+                           size_class: tuple):
+        key = ("plan", lm, pf_chunk, pf_active, size_class)
+        if key not in self._steps:
+            self._steps[key] = make_plan_serving_step(
+                lm, self.batch, self.channels, self.downsample,
+                pf_chunk=pf_chunk, pf_active=pf_active, size_class=size_class,
+                device=self.device,
+            )
+        return self._steps[key]
+
+    def _host_buffer(self, words: int):
+        """(int32 host tensor, its CUDA event or None): pinned when the
+        device is a GPU, so the copy to the device is asynchronous."""
+        pin = self.device.type == "cuda"
+        return (torch.zeros(words, dtype=torch.int32, pin_memory=pin),
+                torch.cuda.Event() if pin else None)
+
     def _alloc_slots(self, n_slots: int, mode: str) -> list:
-        """Packed serving slots, laid out as frontend.alloc_packed_slots:
-        one int32 buffer per slot, pinned when the device is a GPU, whose
-        regions are numpy views that the native decode writes straight into.
-        `copied` is the CUDA event of the slot's last host-to-device copy."""
+        """Packed serving slots, laid out as packed_offsets: one int32
+        buffer per slot whose regions are numpy views that the native
+        decode writes straight into.  `copied` is the CUDA event of the
+        slot's last host-to-device copy."""
         B = self.batch
         off = packed_offsets(B, mode)
-        pin = self.device.type == "cuda"
         slots = []
         for _ in range(n_slots):
-            host = torch.zeros(off["end"], dtype=torch.int32, pin_memory=pin)
+            host, copied = self._host_buffer(off["end"])
             buf = host.numpy()
             xq = buf[: off["ble"]]
             slots.append(dict(
@@ -141,14 +175,88 @@ class BatchedCeltDecoder:
                 ble=buf[off["ble"] : off["meta"]].view(np.float32).reshape(B, 2, 21),
                 meta=buf[off["meta"] : off["gains"]].reshape(B, 16),
                 gains=buf[off["gains"] :].view(np.float32).reshape(B, 3),
-                copied=torch.cuda.Event() if pin else None,
+                copied=copied,
             ))
         return slots
 
+    def _alloc_plan_slots(self, n_slots: int) -> list:
+        """Plan slots (native/frontend.py plan_slot_views) over host
+        buffers of the full arena capacity, with their CUDA events."""
+        words = self.batch * (PLAN_FIXED_WORDS + PLAN_ARENA_WORDS)
+        slots = []
+        for _ in range(n_slots):
+            host, copied = self._host_buffer(words)
+            slot = plan_slot_views(host.numpy(), self.batch, PLAN_ARENA_WORDS)
+            slot.update(host=host, copied=copied)
+            slots.append(slot)
+        return slots
+
+    def _plan_size_class(self, slot) -> tuple:
+        c = slot["header"][:, 1]
+        pvq_mx = int((c & 0x1FF).max(initial=0))
+        fill_mx = int(((c >> 9) & 0x1FF).max(initial=0))
+        # the fetch window may touch one word past the last started one
+        iyw_mx = int(slot["iy_spans"].max(initial=0)) + 1
+        for cls in self.PLAN_CLASSES:
+            if pvq_mx <= cls[0] and fill_mx <= cls[1] and iyw_mx <= cls[2]:
+                return cls
+        return self.PLAN_CLASSES[-1]
+
+    @staticmethod
+    def _plan_upload_words(slot) -> int:
+        """Words of the slot to upload: the fixed regions and the used arena
+        prefix, with at least one arena word for the executor's clamped
+        window fetch to land on."""
+        return max(slot["used_words"], slot["fixed_words"] + 1)
+
+    @staticmethod
+    def _step_lm(meta) -> int:
+        lm = int(meta[0, 2])
+        if not (meta[:, 2] == lm).all():
+            raise ValueError("mixed frame sizes in one step not supported")
+        return lm
+
+    def _upload(self, slot, dev_buf, words: int) -> None:
+        """Copy the slot's first `words` words to the device buffer and
+        mark the copy, so the slot is not rewritten while it is in flight."""
+        dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
+        if slot["copied"] is not None:
+            slot["copied"].record()
+
+    @staticmethod
+    def _reuse(slot) -> None:
+        if slot["copied"] is not None:
+            slot["copied"].synchronize()
+
+    def _ring_for(self, ring, lm: int):
+        n = ((1 << lm) * modes.SHORT_MDCT_SIZE) // self.downsample
+        if ring is None or ring.shape[1] != n:
+            ring = torch.zeros(self.batch, n, self.channels, device=self.device)
+        return ring
+
+    def _serve_state_and_ring(self):
+        state = getattr(self, "_serve_state", None)
+        if state is None:
+            state = init_state(self.batch, self.channels, device=self.device)
+        return state, getattr(self, "_serve_ring", None)
+
+    def _packed_step(self, state, ring, packets, frame_size, slot, dev_buf, mode,
+                     stream_channels):
+        """Plane A into a packed slot, one upload, one serving step."""
+        self._reuse(slot)
+        self.native.decode_batch_q15_into(packets, frame_size, slot, stream_channels)
+        lm = self._step_lm(slot["meta"])
+        # Specialise the post-filter to this step's actual lags.
+        pf_chunk, pf_active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+        self._upload(slot, dev_buf, dev_buf.shape[0])
+        ring = self._ring_for(ring, lm)
+        step = self._serving_step(lm, pf_chunk, pf_active, mode)
+        return step(state, ring, dev_buf)
+
     def serve(self, batches: list, frame_size: int, n_slots: int = 4,
               stream_channels=None) -> np.ndarray:
-        """Serving loop: per step, native plane A writes one packed slot,
-        one host-to-device copy ships it, one serving step synthesises it.
+        """Serving loop: per step, native plane A writes one slot, one
+        host-to-device copy ships it, one serving step synthesises it.
 
         Every device call is asynchronous, so plane A of step t+1 runs on
         the host while the device runs step t.  A slot is rewritten only
@@ -159,39 +267,81 @@ class BatchedCeltDecoder:
         on the device in `self._serve_ring` [B, frame, C].
         """
         if self.transfer == "plan":
-            raise NotImplementedError(
-                "transfer='plan' needs the plan executor and its serve loop, "
-                "ROADMAP.md Queue 1 item 1; use 'p10' or 'q14'")
+            return self._serve_plan(batches, frame_size, n_slots, stream_channels)
         mode = self.transfer if self.transfer in PACK_BITS else "q14"
         if (not hasattr(self, "_slots") or len(self._slots) != n_slots
                 or self._slots[0]["mode"] != mode):
             self._slots = self._alloc_slots(n_slots, mode)
             self._dev_buf = torch.empty(packed_offsets(self.batch, mode)["end"],
                                         dtype=torch.int32, device=self.device)
-        state = getattr(self, "_serve_state", None)
-        if state is None:
-            state = init_state(self.batch, self.channels, device=self.device)
-        ring = getattr(self, "_serve_ring", None)
+        state, ring = self._serve_state_and_ring()
         digest = None
         for t, packets in enumerate(batches):
-            slot = self._slots[t % n_slots]
-            if slot["copied"] is not None:
-                slot["copied"].synchronize()
-            self.native.decode_batch_q15_into(packets, frame_size, slot, stream_channels)
+            state, ring, digest = self._packed_step(
+                state, ring, packets, frame_size, self._slots[t % n_slots], self._dev_buf,
+                mode, stream_channels)
+        self._serve_state = state
+        self._serve_ring = ring
+        return digest.cpu().numpy()
+
+    def _serve_plan(self, batches: list, frame_size: int, n_slots: int = 4,
+                    stream_channels=None) -> np.ndarray:
+        """Plan-executor serving loop (the port of the reference's
+        `_serve_plan`): per step, plane A writes a plan slot, only its used
+        prefix (the fixed regions and the used arena) is uploaded, and the
+        device rebuilds the spectra from that prefix before synthesis.
+
+        A step whose plan overflows the arena ships as a q14 spectrum for
+        just that step (the synthesis state is shared by both step kinds).
+        A step with pitch-regime losses raises NotImplementedError: their
+        concealment runs on the device and is not ported yet.
+        """
+        if frame_size * self.downsample < 480:
+            # 2.5/5 ms frames have n <= 2 bands, which plan mode rejects
+            # (every step would fall back): serve the packed path directly.
+            prev, self.transfer = self.transfer, "p10"
+            try:
+                return self.serve(batches, frame_size, n_slots, stream_channels)
+            finally:
+                self.transfer = prev
+        B = self.batch
+        if not hasattr(self, "_plan_slots") or len(self._plan_slots) != n_slots:
+            self._plan_slots = self._alloc_plan_slots(n_slots)
+            self._plan_buf = torch.empty(self._plan_slots[0]["buf"].shape[0],
+                                         dtype=torch.int32, device=self.device)
+        if not hasattr(self, "_plan_q14_slots"):
+            self._plan_q14_slots = self._alloc_slots(2, "q14")
+            self._plan_q14_buf = torch.empty(packed_offsets(B, "q14")["end"],
+                                             dtype=torch.int32, device=self.device)
+        state, ring = self._serve_state_and_ring()
+        digest = None
+        for t, packets in enumerate(batches):
+            slot = self._plan_slots[t % n_slots]
+            self._reuse(slot)
+            try:
+                self.native.decode_batch_plan_into(packets, frame_size, slot, stream_channels)
+            except OverflowError:
+                # Plan capacity exceeded by this step's content (plane A
+                # restored the streams' state): ship a q14 spectrum.
+                q14_slot = self._plan_q14_slots[self.plan_fallbacks % 2]
+                self.plan_fallbacks += 1
+                state, ring, digest = self._packed_step(
+                    state, ring, packets, frame_size, q14_slot, self._plan_q14_buf, "q14",
+                    stream_channels)
+                continue
             meta = slot["meta"]
-            lm = int(meta[0, 2])
-            if not (meta[:, 2] == lm).all():
-                raise ValueError("mixed frame sizes in one step not supported")
-            # Specialise the post-filter to this step's actual lags.
+            lm = self._step_lm(meta)
+            if (meta[:, 14] & 1).any():
+                raise NotImplementedError(
+                    "plan step with pitch-regime losses: their device concealment "
+                    "(dsp/plc_exec.py) is not ported yet, ROADMAP.md Queue 1 item 2")
             pf_chunk, pf_active = pf_chunk_for(meta[:, 6:9], slot["gains"])
-            self._dev_buf.copy_(slot["host"], non_blocking=True)
-            if slot["copied"] is not None:
-                slot["copied"].record()
-            n = ((1 << lm) * modes.SHORT_MDCT_SIZE) // self.downsample
-            if ring is None or ring.shape[1] != n:
-                ring = torch.zeros(self.batch, n, self.channels, device=self.device)
-            step = self._serving_step(lm, pf_chunk, pf_active, mode)
-            state, ring, digest = step(state, ring, self._dev_buf)
+            words = self._plan_upload_words(slot)
+            self._upload(slot, self._plan_buf, words)
+            ring = self._ring_for(ring, lm)
+            step = self._plan_serving_step(lm, pf_chunk, pf_active,
+                                           self._plan_size_class(slot))
+            state, ring, digest = step(state, ring, self._plan_buf[:words])
         self._serve_state = state
         self._serve_ring = ring
         return digest.cpu().numpy()

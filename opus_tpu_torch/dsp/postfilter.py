@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from opus_tpu.celt import modes
-
+from ..celt import modes
 from .tables import PF_CHUNKS, _envelopes, _tap_gains, _window_sq, on_device
 
 OVERLAP = modes.OVERLAP

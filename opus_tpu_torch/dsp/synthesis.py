@@ -11,9 +11,11 @@ turns them into PCM for a whole batch of streams:
 * de-emphasis: a Toeplitz matmul per 120-sample block plus a carry chain.
 
 Layouts are the reference's: planes [B, C, N], PCM [B, n, C], and the same
-packed-slot word offsets.  `make_synthesis_step` is functional (it returns
-a new state); the serving step updates state and PCM ring in place, which
-stands in for the reference's buffer donation.
+packed-slot and plan-slot word offsets.  `make_synthesis_step` is
+functional (it returns a new state); the serving steps (packed:
+make_serving_step; plan: make_plan_serving_step, whose spectra come from
+the plan executor) update state and PCM ring in place, which stands in
+for the reference's buffer donation.
 """
 
 from __future__ import annotations
@@ -22,9 +24,8 @@ from dataclasses import dataclass
 
 import torch
 
-from opus_tpu.celt import modes
-from opus_tpu.celt.decoder import DECODE_BUFFER_SIZE
-
+from ..celt import modes
+from ..celt.modes import DECODE_BUFFER_SIZE
 from .postfilter import postfilter
 from .tables import (
     _DEEMPH_BLK,
@@ -320,6 +321,79 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
     @torch.no_grad()
     def step(state: SynthState, ring, buf):
         digest = core(state, ring, *unpack(buf))
+        return state, ring, digest
+
+    return step
+
+
+def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 1,
+                           pf_chunk: int = _CHUNK, pf_active: bool = True,
+                           size_class: tuple = (224, 64, 192), *, device):
+    """Serving step over a plan slot (dsp/plan_exec.py).
+
+    Same contract as make_serving_step, but `buf` holds plane A's pulse-
+    vector plan: the packed fixed regions (header [B,2], ble Q9 pairs
+    [B,21], dmeta [B,5], bands [B,16+8]; native/frontend.py
+    pack_plan_fixed), then the arena, which runs to the end of `buf` (the
+    serve loop passes the uploaded prefix, of any length).  The plan
+    executor rebuilds the band spectra, then the shared synthesis core
+    runs.  size_class = (p_max, f_max, iyw) is the executor's size class,
+    picked per step by the serve loop.
+    """
+    from .plan_exec import _f16_to_f32, make_plan_executor
+
+    B = batch
+    nbv = modes.NB_E_BANDS
+    o_ble = B * 2
+    o_dmeta = o_ble + B * nbv
+    o_bw0 = o_dmeta + B * 5
+    o_beff = o_bw0 + B * 16
+    o_arena = o_beff + B * 8
+    p_max, f_max, iyw = size_class
+    executor = make_plan_executor(lm, batch, p_max=p_max, f_max=f_max, iyw=iyw, device=device)
+    core = _make_serving_core(lm, channels, downsample, pf_chunk, pf_active, device=device)
+
+    def unpack(buf):
+        header = buf[:o_ble].reshape(B, 2)
+        blew = buf[o_ble:o_dmeta].reshape(B, nbv)
+        # Q9 int16 pairs -> f32 log-energies (int32 >> is arithmetic, so
+        # the << 16 >> 16 round trip sign-extends the low half).
+        ble = torch.stack([((blew << 16) >> 16).to(torch.float32),
+                           (blew >> 16).to(torch.float32)], dim=1) * (1.0 / 512.0)
+        d = buf[o_dmeta:o_bw0].reshape(B, 5).to(torch.int64)
+        d0, d1 = d[:, 0], d[:, 1]
+        d2u = d[:, 2] & 0xFFFFFFFF
+        d3u = d[:, 3] & 0xFFFFFFFF
+        meta = torch.stack([
+            d0 & 1,                                   # 0 silence
+            (d0 >> 1) & 1,                            # 1 short blocks
+            torch.full_like(d0, lm),                  # 2 lm
+            torch.where(((d0 >> 2) & 1) == 1, 1, 2),  # 3 coded channels
+            torch.where(((d0 >> 3) & 1) == 1, 17, 0),  # 4 start band
+            (d0 >> 8) & 0x1F,                         # 5 eff_end
+            d1 & 0x7FF,                               # 6 pf period0
+            (d1 >> 11) & 0x7FF,                       # 7 pf period1
+            (d0 >> 19) & 0x7FF,                       # 8 pf period2
+            (d0 >> 13) & 3,                           # 9 pf tapset0
+            (d0 >> 15) & 3,                           # 10 pf tapset1
+            (d0 >> 17) & 3,                           # 11 pf tapset2
+            (d3u >> 16) & 0xFF,                       # 12 silk descriptor
+            (d0 >> 6) & 3,                            # 13 spread
+            (d0 >> 4) & 3,                            # 14 plc flags
+            d[:, 4],                                  # 15 plc params
+        ], dim=1).to(torch.int32)
+        gains = torch.stack([_f16_to_f32(d2u), _f16_to_f32(d2u >> 16), _f16_to_f32(d3u)],
+                            dim=1)
+        bands = torch.cat([buf[o_bw0:o_beff].reshape(B, 16),
+                           buf[o_beff:o_arena].reshape(B, 8)], dim=1)
+        arena = buf[o_arena:]
+        return header, ble, meta, gains, bands, arena
+
+    @torch.no_grad()
+    def step(state: SynthState, ring, buf):
+        header, ble, meta, gains, bands, arena = unpack(buf)
+        xs = executor(header, bands, meta, arena)
+        digest = core(state, ring, xs, ble, meta, gains)
         return state, ring, digest
 
     return step

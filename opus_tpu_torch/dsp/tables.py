@@ -5,8 +5,8 @@ expansion, the de-emphasis Toeplitz block, the post-filter crossfade
 envelopes and the packed-slot layout, built as numpy arrays.  Each builder
 named after one in `opus_tpu.dsp.synthesis` or `opus_tpu.dsp.pallas_pf` is
 a copy of it and must stay bit-identical to it (tests/test_torch_tables.py).
-They are copied rather than imported because those modules import jax.
-`on_device` uploads a table to a device once.
+They are copied rather than imported because the port imports nothing of
+`opus_tpu`.  `on_device` uploads a table to a device once.
 """
 
 from __future__ import annotations
@@ -16,9 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from opus_tpu.celt import modes
-from opus_tpu.celt.comb_filter import GAINS
-from opus_tpu.celt.energy import E_MEANS
+from ..celt import modes
+from ..celt.modes import E_MEANS, GAINS
 
 OVERLAP = modes.OVERLAP
 

@@ -59,3 +59,62 @@ def test_packed_layout(mode):
         for silk_words in (0, 481):
             assert T.packed_words(batch, mode, silk_words) == S.packed_words(batch, mode, silk_words)
             assert T.packed_offsets(batch, mode, silk_words) == S.packed_offsets(batch, mode, silk_words)
+
+
+def test_mode_constants_match_their_origins():
+    """opus_tpu_torch.celt.modes copies the constants the port reads from
+    four reference modules; each must be bit-identical."""
+    from opus_tpu.celt import comb_filter, decoder, energy
+    from opus_tpu.celt import modes as ref
+    from opus_tpu_torch.celt import modes as port
+
+    for name in ("OVERLAP", "MAX_LM", "SHORT_MDCT_SIZE", "NB_E_BANDS"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.PREEMPH.dtype == ref.PREEMPH.dtype and port.PREEMPH == ref.PREEMPH
+    assert _same(port.E_BANDS, ref.E_BANDS)
+    assert _same(port.WINDOW, ref.WINDOW)
+    for overlap in (60, 120, 240):
+        assert _same(port._make_window(overlap), ref._make_window(overlap))
+    assert port.DECODE_BUFFER_SIZE == decoder.DECODE_BUFFER_SIZE
+    assert port.GAINS == comb_filter.GAINS
+    assert _same(port.E_MEANS, energy.E_MEANS)
+
+
+@pytest.mark.parametrize("lm", [0, 1, 2, 3])
+def test_plan_band_transforms(lm):
+    """Every reachable band config's (forward, undo) pair, and the
+    reachability tables, bit-identical to opus_tpu.dsp.plan_exec."""
+    from opus_tpu.dsp import plan_exec as R
+    from opus_tpu_torch.dsp import plan_tables as PT
+
+    assert PT._TF_CFGS == R._TF_CFGS and PT._ORDERY == R._ORDERY
+    assert _same(PT._plan_band_of_bin(lm), R._plan_band_of_bin(lm))
+    m = 1 << lm
+    e = R.modes.E_BANDS.astype(np.int64) * m
+    for bi in range(21):
+        nb = int(e[bi + 1] - e[bi])
+        for lb in (True, False):
+            for rec, td in R._TF_CFGS[lm][lb] + [(1, 1), (3, 3)]:
+                bf = 1 if lb else m
+                assert PT._valid_cfg(nb, bf, rec, td) == R._valid_cfg(nb, bf, rec, td)
+                if R._valid_cfg(nb, bf, rec, td):
+                    for a, b in zip(PT.band_transforms(nb, bf, rec, td, lb),
+                                    R.band_transforms(nb, bf, rec, td, lb)):
+                        assert _same(a, b)
+
+
+def test_plan_scalar_builders():
+    from opus_tpu.dsp import plan_exec as R
+    from opus_tpu_torch.dsp import plan_tables as PT
+
+    assert PT.EPSILON == R.EPSILON and PT._SPREAD_FACTOR == R._SPREAD_FACTOR
+    assert PT._LCG_MAX == R._LCG_MAX and PT._lcg_pow2() == R._lcg_pow2()
+    for n in (2, 3, 8, 16, 44, 96, 176):
+        for k in (0, 1, 2, 5, 20, 90):
+            for spread in (0, 1, 2, 3):
+                for bq in (1, 2, 4, 8):
+                    assert PT.rotation_params(n, k, spread, bq) == R.rotation_params(n, k, spread, bq)
+    for seed in (0, 1, 0x7FFFFFFF, 0xFFFFFFFF, 123456789):
+        assert PT.lcg(seed) == R.lcg(seed)
+    h = np.arange(65536, dtype=np.uint16)
+    assert _same(PT.f16_bits_to_f32(h), R.f16_bits_to_f32(h))

@@ -1,0 +1,169 @@
+"""Profile the port's serving steps on one NVIDIA GPU.
+
+    python3 tools/torch_profile.py [--steps N]
+
+Makes the payloads as chip_smoke.py does (B=1024 stereo 48 kHz CELT, 20 ms
+frames, 96 kbps, 13 steps).  For each transfer (p10, plan) it serves them
+once to warm up and once more timed, and prints where a serve() step's
+wall time goes: plane A, the serving step's issue on the host, the rest,
+and the device's busy and idle share under torch.profiler.  Then it
+decodes the first step into one slot and, for each serving step alone,
+prints beside the card's name and power limit:
+
+* the host time to issue one step (host clock around the call, no sync);
+* the device time per step by CUDA events over N back-to-back steps;
+* under torch.profiler over N steps: the device busy time and the number
+  of kernels per step, and the ops that take the most device and host time.
+
+The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
+CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile(name, step_fn, steps: int, where: str, out) -> None:
+    from chip_smoke import cuda_ms
+
+    torch.cuda.synchronize()
+    issue = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step_fn()
+        issue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    ev_ms = cuda_ms(step_fn, steps)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    cuda = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in cuda) / 1e3 / steps
+    kernels = sum(e.count for e in cuda) / steps
+    issue_ms = sorted(issue)[len(issue) // 2] * 1e3
+    print(f"{name}: host issue ms/step median={issue_ms} device ms/step by events={ev_ms} "
+          f"device busy ms/step={busy_ms} kernels/step={kernels} ({where})")
+    top = sorted(cuda, key=_device_us, reverse=True)[:12]
+    for e in top:
+        print(f"  {name} device {_device_us(e) / 1e3 / steps:.4f} ms/step x{e.count // steps} "
+              f"{e.key[:90]}")
+    out.write(f"==== {name} ({where})\n")
+    for key in ("self_cuda_time_total", "self_cpu_time_total"):
+        try:
+            out.write(ka.table(sort_by=key, row_limit=40) + "\n")
+        except (KeyError, AttributeError, ValueError) as err:
+            out.write(f"(no table by {key}: {err})\n")
+
+
+def serve_breakdown(transfer: str, batches, where: str) -> None:
+    """Where a serve() run's wall time goes, per step: plane A (the native
+    decode), the serving step's issue on the host, and the rest (upload,
+    picks, the final digest sync); plus the device busy share of the run
+    under torch.profiler."""
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+
+    dec = BatchedCeltDecoder(cs.B, cs.C, transfer=transfer, device=torch.device("cuda"))
+    dec.serve(batches, cs.FRAME)  # warm-up
+    spent = {"plane A": 0.0, "step issue": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    name = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
+    setattr(dec.native, name, timed(getattr(dec.native, name), "plane A"))
+    for key in list(dec._steps):
+        dec._steps[key] = timed(dec._steps[key], "step issue")
+    t0 = time.perf_counter()
+    dec.serve(batches, cs.FRAME)
+    wall = time.perf_counter() - t0
+    n = len(batches)
+    timed_run = dict(spent)  # the profiled run below adds to the live counters
+    rest = wall - sum(timed_run.values())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dec.serve(batches, cs.FRAME)
+        wall_prof = time.perf_counter() - t0
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in cuda) / 1e6
+    print(f"serve {transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
+          f"plane_A={timed_run['plane A'] / n * 1e3} "
+          f"step_issue={timed_run['step issue'] / n * 1e3} "
+          f"rest={rest / n * 1e3}; under the profiler: wall ms/step={wall_prof / n * 1e3} "
+          f"device_busy={busy / n * 1e3} device_idle_share={1 - busy / wall_prof} ({where})")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.synthesis import init_state
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+
+    where = cs.card()
+    print(where)
+    dev = torch.device("cuda")
+    batches = cs.make_payloads()
+    packets = batches[0]
+    B, C, F = cs.B, cs.C, cs.FRAME
+    serve_breakdown("p10", cs.with_losses(batches), where)
+    serve_breakdown("plan", batches, where)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with open(ROOT / "chiprun_out" / "torch_profile.txt", "w") as out:
+        for transfer in ("p10", "plan"):
+            dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
+            if transfer == "plan":
+                slot = dec._alloc_plan_slots(1)[0]
+                dec.native.decode_batch_plan_into(packets, F, slot)
+            else:
+                slot = dec._alloc_slots(1, "p10")[0]
+                dec.native.decode_batch_q15_into(packets, F, slot)
+            chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+            lm = int(slot["meta"][0, 2])
+            if transfer == "plan":
+                step = dec._plan_serving_step(lm, chunk, active, dec._plan_size_class(slot))
+                buf = slot["host"][: dec._plan_upload_words(slot)].to(dev)
+            else:
+                step = dec._serving_step(lm, chunk, active, "p10")
+                buf = slot["host"].to(dev)
+            state = init_state(B, C, device=dev)
+            ring = torch.zeros(B, F, C, device=dev)
+            profile(f"{transfer} step", lambda: step(state, ring, buf), args.steps, where, out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
