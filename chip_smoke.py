@@ -15,15 +15,19 @@ BatchedCeltDecoder:
   does not serve pitch-regime losses yet): no step may fall back to the
   q14 spectrum, the rotation kernel must launch twice per step, the
   post-filter as on the p10 path.  The inputs of the first step's two
-  rotation passes are recorded, and the kernel is held to its plain
-  version on those real chains too.
+  rotation passes and of its post-filter call (periods and tapsets as
+  the strided views of `meta` the serving core passes) are recorded, and
+  each kernel is held to its plain version on those real inputs too.
 
-Streams 0-3 of each card run are checked against the port's own CPU run
-of the same packets at B=4 (streams decode independently): equal final
-ranges, PCM within 1e-4.  Prints the card's name and power limit, the
-kernels' and plain versions' times, the serve rates end to end, the
-device step times, a JSON line describing each kernel, and as its last
-line {"ok": true, "device": {...}}.  Any failure raises and exits
+Each kernel is timed three ways, on the synthetic inputs and on the
+recorded ones: the wrapper's whole call, the bare library call on C
+arguments converted in advance (the kernel alone), and the plain
+version.  Streams 0-3 of each card run are checked against the port's
+own CPU run of the same packets at B=4 (streams decode independently):
+equal final ranges, PCM within 1e-4.  Prints the card's name and power
+limit, those times with each kernel's bound, the serve rates end to end,
+the device step times, a JSON line describing each kernel, and as its
+last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before doing anything.
 """
 
@@ -72,6 +76,12 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def best_ms(fn, reps: int, windows: int = 3) -> float:
+    """The smallest of `windows` cuda_ms readings: a kernel's time, with
+    any window in which the host stalled the issue left out."""
+    return min(cuda_ms(fn, reps) for _ in range(windows))
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -131,6 +141,63 @@ def postfilter_inputs(lm, chunk, seed, dev):
     return [torch.tensor(a, device=dev) for a in (y, periods, gains, tapsets)]
 
 
+def pf_bytes(periods, gains, n: int, lm: int) -> tuple[int, int]:
+    """Bytes the post-filter must move for these inputs: (what the data
+    needs, whole rows).  A row reads its frame and the lagged history its
+    longest active lag reaches (lag + 2 back) and writes its frame; a row
+    whose filters all have zero gain moves nothing.  Whole rows: every
+    row of W read and its frame written, as a kernel that ignores the
+    gains would."""
+    nf = 2 if lm == 0 else 3
+    p = np.clip(periods[:, :nf].cpu().numpy().astype(np.int64), 15, 1024)
+    g = gains[:, :nf].cpu().numpy()
+    longest = np.where(g != 0, p, 0).max(axis=1)
+    live = (g != 0).any(axis=1)
+    meta = periods.shape[0] * 9 * 4
+    needed = int(np.where(live, 2 * n + longest + 2, 0).sum()) * C * 4 + meta
+    whole = B * C * (W + n) * 4 + meta
+    return needed, whole
+
+
+def pf_row_chunks(periods, gains, lm: int) -> np.ndarray:
+    """Each stream's largest safe chunk: its shortest active lag - 2
+    (0 for a stream with no active filter)."""
+    nf = 2 if lm == 0 else 3
+    p = np.clip(periods[:, :nf].cpu().numpy().astype(np.int64), 15, 1024)
+    g = gains[:, :nf].cpu().numpy()
+    return np.where((g != 0).any(axis=1), np.where(g != 0, p, 10**6).min(axis=1) - 2, 0)
+
+
+def bare(entry: str, prepared: list):
+    """fn() calling the library's `entry` on C arguments converted in
+    advance, cycling through `prepared`: the kernel alone, without the
+    wrapper's checks and conversions (the return code is checked once)."""
+    from opus_tpu_torch import _build
+
+    fn = getattr(_build.library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    if fn(*prepared[0], stream) != 0:
+        raise RuntimeError(f"{entry} launch failed")
+    return cycled(lambda args: fn(*args, stream), prepared)
+
+
+def postfilter_times(y, hist, n, lm, periods, gains, tapsets, chunk) -> dict:
+    """ms of the wrapper's whole call, of the bare kernel launch on
+    arguments prepared in advance, and of the plain version; four copies
+    of y (67 MB) cycle beyond the 50 MB L2."""
+    from opus_tpu_torch.dsp import postfilter as pf
+
+    ys = [y.clone() for _ in range(4)]
+    prepared = [pf._kernel_args(yy, hist, n, lm, periods, gains, tapsets) for yy in ys]
+
+    def run(fn):
+        return cycled(lambda yy: fn(yy, hist, n, lm, periods, gains, tapsets, chunk), ys)
+
+    return {"ms": best_ms(run(pf.postfilter), 40),
+            "kernel_ms": best_ms(bare("opus_postfilter", prepared), 40),
+            "plain_ms": cuda_ms(run(pf._postfilter_ref), 5)}
+
+
 def postfilter_phase(dev, where: str) -> dict:
     """Post-filter kernel vs _postfilter_ref on the card, every case."""
     from opus_tpu_torch.dsp.postfilter import _postfilter_ref, postfilter
@@ -153,15 +220,12 @@ def postfilter_phase(dev, where: str) -> dict:
                                  f"at lm={lm} chunk={chunk}")
         max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
         if lm == 3:
-            # Four copies (67 MB) cycle beyond the 50 MB L2.
-            ys = [y.clone() for _ in range(4)]
-
-            def run(fn):
-                return cycled(lambda yy: fn(yy, W - n, n, lm, periods, gains, tapsets, chunk), ys)
-
-            times[chunk] = (cuda_ms(run(postfilter), 40), cuda_ms(run(_postfilter_ref), 5))
-            print(f"time postfilter B={B} C={C} lm=3 chunk={chunk}: kernel_ms={times[chunk][0]} "
-                  f"plain_ms={times[chunk][1]} ({where})")
+            t = postfilter_times(y, W - n, n, lm, periods, gains, tapsets, chunk)
+            t["bytes"] = pf_bytes(periods, gains, n, lm)
+            times[chunk] = t
+            print(f"time postfilter B={B} C={C} lm=3 chunk={chunk}: wrapper_ms={t['ms']} "
+                  f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} "
+                  f"bytes_needed={t['bytes'][0]} bytes_whole_rows={t['bytes'][1]} ({where})")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, "times": times}
 
 
@@ -188,6 +252,19 @@ def rotation_inputs(seed: int, n2: int, dev):
     return [torch.tensor(a, device=dev) for a in (x, cc, ss, k_pos, m_pos)]
 
 
+def rotation_times(args) -> dict:
+    """ms of the wrapper's whole call, of the bare kernel launch into an
+    output allocated in advance, and of the plain version; three copies
+    of the five planes and the output (141 MB) cycle beyond the L2."""
+    from opus_tpu_torch.dsp import rotation as rot
+
+    sets = [[a.clone() for a in args] + [torch.empty_like(args[0])] for _ in range(3)]
+    prepared = [rot._kernel_args(*a) for a in sets]
+    return {"ms": best_ms(cycled(lambda a: rot.rot_pass(*a[:5]), sets), 40),
+            "kernel_ms": best_ms(bare("opus_rot_pass", prepared), 40),
+            "plain_ms": cuda_ms(cycled(lambda a: rot._rot_pass_ref(*a[:5]), sets), 5)}
+
+
 def rotation_phase(dev, where: str) -> dict:
     """Rotation kernel vs _rot_pass_ref on the card, at the lm=3 and lm=2
     planes; times at lm=3."""
@@ -209,12 +286,9 @@ def rotation_phase(dev, where: str) -> dict:
             raise AssertionError(f"rotation kernel disagrees with plain version: {err} at n2={n2}")
         max_abs = max(max_abs, err)
         if lm == 3:
-            # Three copies of the five planes (141 MB) cycle beyond L2.
-            sets = [[a.clone() for a in args] for _ in range(3)]
-            times = (cuda_ms(cycled(lambda a: rot_pass(*a), sets), 40),
-                     cuda_ms(cycled(lambda a: _rot_pass_ref(*a), sets), 5))
-            print(f"time rotation B={B} n2={n2}: kernel_ms={times[0]} plain_ms={times[1]} "
-                  f"({where})")
+            times = rotation_times(args)
+            print(f"time rotation B={B} n2={n2} random chains: wrapper_ms={times['ms']} "
+                  f"kernel_alone_ms={times['kernel_ms']} plain_ms={times['plain_ms']} ({where})")
     return {"max_abs_err": max_abs, "times": times}
 
 
@@ -276,37 +350,53 @@ def serve_steps(dec, batches) -> dict:
             "chunks": chunks}
 
 
-def recording_rot_inputs(captured: list, n: int):
-    """Context manager: while it is open, the plan executor's rotation
-    passes go through the kernel as before, and the inputs of the first
-    `n` are cloned into `captured`."""
+def same_layout(t):
+    """A copy of t with t's strides (a view of `meta` stays a strided view)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
+
+def recording_inputs(captured: dict):
+    """Context manager: while it is open, the main path's rotation passes
+    and post-filter calls run as before, and the inputs of the first two
+    rotation passes and of the first post-filter call are copied into
+    captured["rotation"] and captured["postfilter"]."""
     import contextlib
 
-    from opus_tpu_torch.dsp import plan_exec
+    from opus_tpu_torch.dsp import plan_exec, synthesis
 
-    real = plan_exec.rot_pass
+    real_rot, real_pf = plan_exec.rot_pass, synthesis.postfilter
+    captured.update(rotation=[], postfilter=[])
 
-    def recording(*args):
-        if len(captured) < n:
-            captured.append([a.clone() for a in args])
-        return real(*args)
+    def rot(*args):
+        if len(captured["rotation"]) < 2:
+            captured["rotation"].append([a.clone() for a in args])
+        return real_rot(*args)
+
+    def pf(y, hist, n, lm, periods, gains, tapsets, chunk):
+        if not captured["postfilter"]:
+            captured["postfilter"].append(
+                (y.clone(), hist, n, lm, same_layout(periods), same_layout(gains),
+                 same_layout(tapsets), chunk))
+        return real_pf(y, hist, n, lm, periods, gains, tapsets, chunk)
 
     @contextlib.contextmanager
     def patched():
-        plan_exec.rot_pass = recording
+        plan_exec.rot_pass, synthesis.postfilter = rot, pf
         try:
             yield
         finally:
-            plan_exec.rot_pass = real
+            plan_exec.rot_pass, synthesis.postfilter = real_rot, real_pf
 
     return patched()
 
 
-def rotation_on_real_chains(captured: list) -> float:
-    """The rotation kernel vs _rot_pass_ref on recorded main-path inputs."""
+def rotation_on_real_chains(captured: list, where: str) -> dict:
+    """The rotation kernel vs _rot_pass_ref on recorded main-path inputs,
+    and its times there."""
     from opus_tpu_torch.dsp.rotation import _rot_pass_ref, rot_pass
 
     max_abs = 0.0
+    times = {}
     for name, args in zip(("A", "B"), captured):
         got, ref = rot_pass(*args), _rot_pass_ref(*args)
         torch.cuda.synchronize()
@@ -322,10 +412,43 @@ def rotation_on_real_chains(captured: list) -> float:
             raise AssertionError(f"rotation kernel disagrees with plain version on the plan "
                                  f"step's pass {name}: {err}")
         max_abs = max(max_abs, err)
-    return max_abs
+        times[name] = rotation_times(args)
+        print(f"time rotation B={B} n2={args[0].shape[1]} plan step pass {name}: "
+              f"wrapper_ms={times[name]['ms']} kernel_alone_ms={times[name]['kernel_ms']} "
+              f"plain_ms={times[name]['plain_ms']} ({where})")
+    return {"max_abs_err": max_abs, "times": times}
 
 
-def main_path(dev, transfer: str, batches) -> dict:
+def postfilter_on_real_inputs(rec: tuple, where: str) -> dict:
+    """The post-filter kernel vs _postfilter_ref on the first plan step's
+    recorded inputs (periods and tapsets are the strided views of `meta`
+    that the serving core passes), and its times there."""
+    from opus_tpu_torch.dsp.postfilter import _postfilter_ref, postfilter
+
+    y, hist, n, lm, periods, gains, tapsets, chunk = rec
+    ref = _postfilter_ref(y.clone(), hist, n, lm, periods, gains, tapsets, chunk)
+    got = postfilter(y.clone(), hist, n, lm, periods, gains, tapsets, chunk)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    rows = pf_row_chunks(periods, gains, lm)
+    live = rows[rows > 0]
+    print(f"kernel postfilter on plan step 1 B={B} lm={lm} batch chunk={chunk}: "
+          f"{live.size} of {rows.size} streams active, per-stream chunk min={live.min()} "
+          f"median={int(np.median(live))}, periods strides {periods.stride()}: "
+          f"max_abs_err={err} max_rel_err={rel}")
+    if not bool(torch.isfinite(got).all()) or not rel < PF_REL_TOL:
+        raise AssertionError(f"post-filter kernel disagrees with plain version on the plan "
+                             f"step's inputs: rel {rel}")
+    t = postfilter_times(y, hist, n, lm, periods, gains, tapsets, chunk)
+    t["bytes"] = pf_bytes(periods, gains, n, lm)
+    print(f"time postfilter B={B} C={C} lm={lm} chunk={chunk} plan step 1: wrapper_ms={t['ms']} "
+          f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} "
+          f"bytes_needed={t['bytes'][0]} bytes_whole_rows={t['bytes'][1]} ({where})")
+    return {"max_abs_err": err, "max_rel_err": rel, "times": t}
+
+
+def main_path(dev, transfer: str, batches, where: str) -> dict:
     """Serve every step through the port at B=1024 with the launch counts
     set to 0 just before and read just after; then check streams 0-3
     against the port's CPU run of the same packets at B=4.  On the plan
@@ -336,8 +459,8 @@ def main_path(dev, transfer: str, batches) -> dict:
     from opus_tpu_torch.dsp.rotation import rot_pass
 
     dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
-    captured = []
-    with recording_rot_inputs(captured, 2):
+    captured = {}
+    with recording_inputs(captured):
         postfilter.launches = 0
         rot_pass.launches = 0
         got = serve_steps(dec, batches)
@@ -355,7 +478,10 @@ def main_path(dev, transfer: str, batches) -> dict:
     if launches["rotation"] != 2 * plan_steps:
         raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
                              f"{plan_steps} plan steps (2 passes each)")
-    rot_err = rotation_on_real_chains(captured) if transfer == "plan" else None
+    real = None
+    if transfer == "plan":
+        real = {"rotation": rotation_on_real_chains(captured["rotation"], where),
+                "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where)}
 
     cpu = BatchedCeltDecoder(4, C, transfer=transfer, device="cpu")
     want = serve_steps(cpu, [pk[:4] for pk in batches])
@@ -367,7 +493,7 @@ def main_path(dev, transfer: str, batches) -> dict:
             raise AssertionError(f"stream {i}: final range differs from the CPU run")
         if not err < CPU_PCM_TOL:
             raise AssertionError(f"stream {i}: PCM err {err} against the CPU run")
-    return {"launches": launches, "chunks": got["chunks"], "rot_err": rot_err}
+    return {"launches": launches, "chunks": got["chunks"], "real": real}
 
 
 def serve_rate(dev, transfer: str, batches, where: str) -> float:
@@ -467,8 +593,8 @@ def main() -> int:
 
     clean = make_payloads()
     lossy = with_losses(clean)
-    p10 = main_path(dev, "p10", lossy)
-    plan = main_path(dev, "plan", clean)
+    p10 = main_path(dev, "p10", lossy, where)
+    plan = main_path(dev, "plan", clean, where)
 
     rate_p10 = serve_rate(dev, "p10", lossy, where)
     rate_plan = serve_rate(dev, "plan", clean, where)
@@ -479,34 +605,45 @@ def main() -> int:
 
     chunks = [c for c in p10["chunks"] + plan["chunks"] if c]
     main_chunk = max(set(chunks), key=chunks.count)
-    pf_ms, pf_plain_ms = pf["times"][main_chunk]
-    # Post-filter at the serving shape: y [B, C, W] read, the frame region
-    # [B, C, 960] written, lags/taps per row, 3 filter envelopes; per
-    # output sample 3 filters x (5 taps: 3 mul + 4 add, envelope mul + add).
-    pf_bytes = B * C * W * 4 + B * C * 960 * 4 + B * C * 12 * 4 + 3 * W * 4
-    pf_bound, pf_by = bound_ms(pf_bytes, B * C * 960 * 3 * 9)
+    pf_t = pf["times"][main_chunk]
+    pf_real = plan["real"]["postfilter"]
+    # Post-filter: the bytes these inputs need (pf_bytes); the arithmetic,
+    # 3 filters x (5 taps: 3 mul + 4 add, envelope mul + add) per output
+    # sample, is far below the byte time.
+    pf_flops = B * C * 960 * 3 * 9
+    pf_bound, pf_by = bound_ms(pf_t["bytes"][0], pf_flops)
+    pf_bound_real = bound_ms(pf_real["times"]["bytes"][0], pf_flops)[0]
     # Rotation at the plan step's plane: x, cc, ss, k_pos, m_pos read,
     # out written; about 12 operations per element over both recurrences.
     n2 = 1920
     rot_bound, rot_by = bound_ms(6 * B * n2 * 4, 12 * B * n2)
+    rot_real = plan["real"]["rotation"]
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
          "replaces": "opus_tpu/dsp/pallas_pf.py:89",
          "launches": p10["launches"]["postfilter"] + plan["launches"]["postfilter"],
          "launches_by_path": {"p10": p10["launches"]["postfilter"],
                               "plan": plan["launches"]["postfilter"]},
-         "max_abs_err": pf["max_abs_err"], "ms": pf_ms, "plain_ms": pf_plain_ms,
+         "max_abs_err": max(pf["max_abs_err"], pf_real["max_abs_err"]),
+         "ms": pf_t["ms"], "plain_ms": pf_t["plain_ms"],
          "bound_ms": pf_bound, "bound_by": pf_by, "library_ms": None,
-         "shape": f"B={B} C={C} lm=3 chunk={main_chunk}"},
+         "shape": f"B={B} C={C} lm=3 chunk={main_chunk}",
+         "kernel_ms": pf_t["kernel_ms"],
+         "bound_ms_whole_rows": bound_ms(pf_t["bytes"][1], pf_flops)[0],
+         "ms_real": pf_real["times"]["ms"], "kernel_ms_real": pf_real["times"]["kernel_ms"],
+         "plain_ms_real": pf_real["times"]["plain_ms"], "bound_ms_real": pf_bound_real},
         {"name": "rotation", "route": "cuda", "source": "opus_tpu_torch/csrc/rotation.cu",
          "replaces": "opus_tpu/dsp/pallas_rot.py:46",
          "launches": plan["launches"]["rotation"],
          "launches_by_path": {"p10": p10["launches"]["rotation"],
                               "plan": plan["launches"]["rotation"]},
-         "max_abs_err": max(rot["max_abs_err"], plan["rot_err"]),
-         "ms": rot["times"][0], "plain_ms": rot["times"][1],
+         "max_abs_err": max(rot["max_abs_err"], rot_real["max_abs_err"]),
+         "ms": rot["times"]["ms"], "plain_ms": rot["times"]["plain_ms"],
          "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None,
-         "shape": f"B={B} n2={n2}"},
+         "shape": f"B={B} n2={n2}",
+         "kernel_ms": rot["times"]["kernel_ms"],
+         **{f"{key}_real_{p}": rot_real["times"][p][key]
+            for p in ("A", "B") for key in ("ms", "kernel_ms", "plain_ms")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ At first use, nvcc compiles every source under csrc/ into one shared
 library with a plain C interface, for sm_90a (Hopper).  The library goes
 to _build/, named by a hash of the sources and the flags, so an edited
 source rebuilds and an unchanged one loads at once.  It is loaded with
-ctypes; callers pass device pointers and the stream as c_void_p.
+ctypes; callers pass device pointers and the stream as c_void_p, through
+`launch`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "csrc"
@@ -77,9 +80,18 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.opus_postfilter.restype = i
-    lib.opus_postfilter.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.opus_postfilter.argtypes = [p, p, ll, ll, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, p]
     lib.opus_rot_pass.restype = i
     lib.opus_rot_pass.argtypes = [p, p, p, p, p, p, i, i, p]
     return lib
+
+
+def launch(entry: str, device: torch.device, args: tuple) -> None:
+    """Call the library's `entry` with `args` (device pointers and plain
+    values) and the device's current stream; raise if the launch failed."""
+    with torch.cuda.device(device):
+        rc = getattr(library(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")

@@ -3,9 +3,11 @@
 `postfilter` applies the post-filter in place over y[..., hist:hist+n].
 On a CUDA tensor it launches the hand-written kernel (csrc/postfilter.cu,
 the port of opus_tpu/dsp/pallas_pf.py::_pf_kernel) and raises if the
-kernel does not build or launch.  On a CPU tensor it runs
-`_postfilter_ref`, the plain torch port of opus_tpu.dsp.synthesis
-._postfilter, which defines the semantics the kernel is held to.
+kernel does not build or launch: one launch and no other device work,
+since the kernel reads periods, gains and tapsets in place and picks
+each row's chunk itself.  On a CPU tensor it runs `_postfilter_ref`, the
+plain torch port of opus_tpu.dsp.synthesis._postfilter, which defines the
+semantics the kernel is held to.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..celt import modes
-from .tables import PF_CHUNKS, _envelopes, _tap_gains, _window_sq, on_device
+from .tables import PF_CHUNKS, _tap_gains, _window_sq, on_device
 
 OVERLAP = modes.OVERLAP
 _MIN_PERIOD, _MAX_PERIOD = 15, 1024
@@ -109,9 +111,11 @@ def postfilter(y, hist, n, lm, periods, gains, tapsets, chunk=12):
     """Apply the CELT pitch post-filter in place over y[..., hist:hist+n].
 
     y [B, C, W] f32 contiguous; periods/tapsets [B, 3] int, gains [B, 3]
-    f32 (filters old/current/new); chunk from pf_chunk_for.  Returns y.
-    A CUDA tensor goes through the kernel (each launch adds one to
-    `postfilter.launches`); a CPU tensor through `_postfilter_ref`.
+    f32 (filters old/current/new), any strides; chunk from pf_chunk_for.
+    Returns y.  A CUDA tensor goes through the kernel (each launch adds
+    one to `postfilter.launches`), which takes int32 periods and tapsets
+    and chooses each row's chunk itself (the result does not depend on
+    it); a CPU tensor through `_postfilter_ref` at `chunk`.
     """
     _check(y, hist, n, lm, periods, gains, tapsets, chunk)
     if y.device.type == "cpu":
@@ -121,25 +125,25 @@ def postfilter(y, hist, n, lm, periods, gains, tapsets, chunk=12):
     if hist < _MAX_PERIOD + 2:
         raise ValueError(f"hist={hist}: the kernel needs {_MAX_PERIOD + 2} samples "
                          "of history before the frame")
+    if periods.dtype != torch.int32 or tapsets.dtype != torch.int32:
+        raise ValueError(f"the kernel reads int32 periods and tapsets, got "
+                         f"{periods.dtype} and {tapsets.dtype}")
     from .. import _build
 
-    B, C, W = y.shape
-    # Per-row lags and tap gains, resolved as pallas_postfilter does.
-    lags = torch.clamp(periods, _MIN_PERIOD, _MAX_PERIOD).to(torch.int32)
-    lags = lags.repeat_interleave(C, 0).contiguous()
-    taps = on_device(_tap_gains, y.device)[tapsets.long()] * gains[..., None]
-    taps = taps.repeat_interleave(C, 0).reshape(B * C, 9).contiguous()
-    wf = on_device(_envelopes, y.device, n, lm, hist, W)
-    with torch.cuda.device(y.device):
-        rc = _build.library().opus_postfilter(
-            y.data_ptr(), lags.data_ptr(), taps.data_ptr(), wf.data_ptr(),
-            B * C, W, hist, n, chunk, 2 if lm == 0 else 3,
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"postfilter kernel launch failed: cudaError {rc}")
+    _build.launch("opus_postfilter", y.device, _kernel_args(y, hist, n, lm, periods, gains,
+                                                           tapsets))
     postfilter.launches += 1
     return y
 
 
 postfilter.launches = 0
+
+
+def _kernel_args(y, hist, n, lm, periods, gains, tapsets) -> tuple:
+    """The C arguments of one launch on checked CUDA tensors, but the
+    stream (which `_build.launch` adds): the per-stream parameters in
+    place at their strides, and WINDOW^2 (uploaded once per device)."""
+    B, C, W = y.shape
+    return (y.data_ptr(), periods.data_ptr(), *periods.stride(), gains.data_ptr(),
+            *gains.stride(), tapsets.data_ptr(), *tapsets.stride(),
+            on_device(_window_sq, y.device).data_ptr(), B * C, C, W, hist, n, lm)

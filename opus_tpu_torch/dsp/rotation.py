@@ -80,6 +80,13 @@ def _check(x, cc, ss, k_pos, m_pos):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _kernel_args(x, cc, ss, k_pos, m_pos, out) -> tuple:
+    """The C arguments of one launch into `out` on checked CUDA tensors,
+    but the stream (which `_build.launch` adds)."""
+    return (x.data_ptr(), cc.data_ptr(), ss.data_ptr(), k_pos.data_ptr(), m_pos.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1])
+
+
 def rot_pass(x, cc, ss, k_pos, m_pos):
     """One exp_rotation1 pass over the chains of x [B, N]; returns a new
     [B, N] tensor.  x, cc, ss float32; k_pos, m_pos int32; all [B, N]
@@ -94,14 +101,7 @@ def rot_pass(x, cc, ss, k_pos, m_pos):
     from .. import _build
 
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _build.library().opus_rot_pass(
-            x.data_ptr(), cc.data_ptr(), ss.data_ptr(), k_pos.data_ptr(),
-            m_pos.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rotation kernel launch failed: cudaError {rc}")
+    _build.launch("opus_rot_pass", x.device, _kernel_args(x, cc, ss, k_pos, m_pos, out))
     rot_pass.launches += 1
     return out
 

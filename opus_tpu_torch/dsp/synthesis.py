@@ -35,11 +35,11 @@ from .tables import (
     _deemph_toeplitz,
     _e_bands,
     _e_means,
-    _envelopes,
     _synthesis_basis,
     _tap_gains,
     _tdac_windows,
     _unpack_index,
+    _window_sq,
     on_device,
     packed_offsets,
 )
@@ -77,7 +77,7 @@ def _load_tables(lm: int, device) -> None:
     on_device(_deemph_toeplitz, device)
     on_device(_deemph_powers, device)
     on_device(_tap_gains, device)
-    on_device(_envelopes, device, n, lm, DECODE_BUFFER_SIZE - n, DECODE_BUFFER_SIZE)
+    on_device(_window_sq, device)
 
 
 def _denormalise(x, band_log_e, lm, bound):

@@ -3,7 +3,7 @@
 These are the port's fixed "weights": the IMDCT basis, the band one-hot
 expansion, the de-emphasis Toeplitz block, the post-filter crossfade
 envelopes and the packed-slot layout, built as numpy arrays.  Each builder
-named after one in `opus_tpu.dsp.synthesis` or `opus_tpu.dsp.pallas_pf` is
+named after one in `opus_tpu.dsp.synthesis` is
 a copy of it and must stay bit-identical to it (tests/test_torch_tables.py).
 They are copied rather than imported because the port imports nothing of
 `opus_tpu`.  `on_device` uploads a table to a device once.
@@ -132,28 +132,9 @@ def packed_offsets(batch: int, mode: str = "q14", silk_words: int = 0) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _envelopes(n: int, lm: int, hist: int, w: int) -> np.ndarray:
-    """Per-filter per-sample crossfade weights wf[4, W] (row 3 is pad).
-
-    The first SHORT_MDCT_SIZE samples of the frame crossfade filter 0 -> 1
-    under WINDOW^2, the remainder crossfades 1 -> 2 over OVERLAP samples
-    then runs filter 2 alone.  Zero outside [hist, hist+n).
-    """
-    w2 = (modes.WINDOW.astype(np.float64) ** 2).astype(np.float32)
-    s = modes.SHORT_MDCT_SIZE
-    wf = np.zeros((4, w), np.float32)
-    wf[0, hist : hist + s] = 1.0 - w2
-    wf[1, hist : hist + s] = w2
-    if lm != 0:
-        wf[1, hist + s : hist + 2 * s] = 1.0 - w2
-        wf[2, hist + s : hist + 2 * s] = w2
-        wf[2, hist + 2 * s : hist + n] = 1.0
-    return wf
-
-
-@functools.lru_cache(maxsize=None)
 def _window_sq() -> np.ndarray:
-    """[OVERLAP] WINDOW^2, the post-filter crossfade weight."""
+    """[OVERLAP] WINDOW^2, the post-filter crossfade weight (the kernel
+    reads it; opus_tpu.dsp.pallas_pf._envelopes lays it out per filter)."""
     return (modes.WINDOW.astype(np.float64) ** 2).astype(np.float32)
 
 

@@ -36,9 +36,32 @@ def test_deemphasis_tables():
 
 @pytest.mark.parametrize("lm", [0, 1, 2, 3])
 def test_envelopes(lm):
+    """The post-filter kernel weighs each filter with WINDOW^2 as
+    csrc/postfilter.cu lays it out: the reference kernel's per-filter
+    envelopes, bit for bit."""
     n = 120 << lm
+    w2 = T._window_sq()
     for hist, w in ((2048 - n, 2048), (2048 - n - 8, 2040)):
-        assert _same(T._envelopes(n, lm, hist, w), P._envelopes(n, lm, hist, w))
+        wf = np.zeros((4, w), np.float32)
+        wf[0, hist : hist + 120] = 1.0 - w2
+        wf[1, hist : hist + 120] = w2
+        if lm:
+            wf[1, hist + 120 : hist + 240] = 1.0 - w2
+            wf[2, hist + 120 : hist + 240] = w2
+            wf[2, hist + 240 : hist + n] = 1.0
+        assert _same(wf, P._envelopes(n, lm, hist, w))
+
+
+def test_postfilter_kernel_gains_table():
+    """The GAINS literals in csrc/postfilter.cu round to the port's
+    float32 tap-gain table."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(T.__file__).parent.parent / "csrc" / "postfilter.cu").read_text()
+    body = re.search(r"kGains\[3\]\[3\] = \{(.*?)\};", src, re.S).group(1)
+    lits = [float(v) for v in re.findall(r"([0-9.]+)f", body)]
+    assert _same(np.array(lits, np.float32).reshape(3, 3), T._tap_gains())
 
 
 def test_pf_chunk_for():

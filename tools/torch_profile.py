@@ -13,7 +13,9 @@ prints beside the card's name and power limit:
 * the host time to issue one step (host clock around the call, no sync);
 * the device time per step by CUDA events over N back-to-back steps;
 * under torch.profiler over N steps: the device busy time and the number
-  of kernels per step, and the ops that take the most device and host time.
+  of kernels per step, each hand-written kernel's device time and
+  launches per step by its symbol name, and the ops that take the most
+  device and host time.
 
 The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
 CUDA device; exits non-zero without one.
@@ -30,6 +32,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+#: The symbols of the kernels in opus_tpu_torch/csrc/.
+KERNELS = ("postfilter_kernel", "rot_pass_kernel")
 
 
 def _device_us(evt) -> float:
@@ -62,6 +67,11 @@ def profile(name, step_fn, steps: int, where: str, out) -> None:
     issue_ms = sorted(issue)[len(issue) // 2] * 1e3
     print(f"{name}: host issue ms/step median={issue_ms} device ms/step by events={ev_ms} "
           f"device busy ms/step={busy_ms} kernels/step={kernels} ({where})")
+    for sym in KERNELS:
+        hits = [e for e in cuda if sym in e.key]
+        print(f"  {name} kernel {sym}: device ms/step="
+              f"{sum(_device_us(e) for e in hits) / 1e3 / steps} "
+              f"launches/step={sum(e.count for e in hits) / steps} ({where})")
     top = sorted(cuda, key=_device_us, reverse=True)[:12]
     for e in top:
         print(f"  {name} device {_device_us(e) / 1e3 / steps:.4f} ms/step x{e.count // steps} "
