@@ -2,29 +2,37 @@
 
     python3 chip_smoke.py
 
-Builds plane A (g++) and the CUDA kernels (nvcc, sm_90a; post-filter and
-spreading rotation) from the sources in the checkout, in parallel, and
-holds each kernel to its plain torch version at the serving shapes.  Then
-it serves 1024 stereo 48 kHz CELT streams (20 ms frames at 96 kbps,
-payloads from the port's native encoder) through both serving paths of
-BatchedCeltDecoder:
+Builds plane A (g++) and the CUDA kernels (nvcc, sm_90a; post-filter,
+spreading rotation and the two scans of the loss concealment) from the
+sources in the checkout, in parallel, and holds each kernel to its plain
+torch version at the serving shapes.  Then it serves 1024 stereo 48 kHz
+CELT streams (20 ms frames at 96 kbps, payloads from the port's native
+encoder) through three main paths of BatchedCeltDecoder:
 
-* transfer="p10", 13 steps, one of them with lost packets: the post-filter
-  kernel must launch on every step with an active filter;
-* transfer="plan", the same 13 steps without the losses (the plan path
-  does not serve pitch-regime losses yet): no step may fall back to the
-  q14 spectrum, the rotation kernel must launch twice per step, the
-  post-filter as on the p10 path.  The inputs of the first step's two
-  rotation passes and of its post-filter call (periods and tapsets as
-  the strided views of `meta` the serving core passes) are recorded, and
-  each kernel is held to its plain version on those real inputs too.
+* p10: transfer="p10", 13 steps, one of them with lost packets: the
+  post-filter kernel must launch on every step with an active filter;
+* plan: transfer="plan", the same 13 steps without losses: no step may
+  fall back to the q14 spectrum, the rotation kernel must launch twice
+  per step, the post-filter as on the p10 path.  The inputs of the first
+  step's two rotation passes and of its post-filter call (periods and
+  tapsets as the strided views of `meta` the serving core passes) are
+  recorded, and each kernel is held to its plain version on them too;
+* plan-loss: transfer="plan" with packet loss (`with_plan_losses`: 5%
+  random on steps 1-12, every third stream on step 6, two bursts).  A
+  stream's first lost frames are concealed on the device: every step
+  with such losses must run a concealing step variant (at least one
+  compact, at least one whole-batch), with 2 pitch_track and 1 lpc_synth
+  launches per such step, besides the plan path's gates.  The inputs of
+  the first lossy step's scans are recorded and the kernels held to
+  their plain versions on them.
 
 Each kernel is timed three ways, on the synthetic inputs and on the
 recorded ones: the wrapper's whole call, the bare library call on C
 arguments converted in advance (the kernel alone), and the plain
 version.  Streams 0-3 of each card run are checked against the port's
 own CPU run of the same packets at B=4 (streams decode independently):
-equal final ranges, PCM within 1e-4.  Prints the card's name and power
+equal final ranges, PCM within 1e-4 (1e-3 once a stream has lost a frame
+on plan-loss, and equal carried pitch).  Prints the card's name and power
 limit, those times with each kernel's bound, the serve rates end to end,
 the device step times, a JSON line describing each kernel, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
@@ -54,6 +62,13 @@ ROT_LENGTHS = [1, 1, 2, 3, 5, 8, 21, 44, 87, 176]
 CPU_PCM_TOL = 1e-4  # card run vs the port's CPU run, streams 0-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# The concealment's scans are bound by their dependent chain: cycles of
+# arithmetic latency (4 cycles for a float add, multiply-add or max) at
+# the H100 SXM's top boost clock.
+CLOCK_HZ = 1.98e9
+PLAN_LOSS_P, PLAN_LOSS_SEED = 0.05, 7
+PLC_PCM_TOL = 1e-3  # card vs CPU once a stream has lost a frame (tests/test_torch_plc.py)
+LPC_PEAK_TOL = 1e-3  # lpc_synth (kernel and f32 plain) vs float64, of each row's peak
 
 
 def card() -> str:
@@ -89,6 +104,13 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     over the float32 peak, whichever is larger."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def chain_bound_ms(nbytes: float, cycles: float) -> tuple[float, str]:
+    """Least time of a scan: its bytes over the HBM rate or its dependent
+    chain of `cycles` at CLOCK_HZ (operations), whichever is larger."""
+    tb, tc = nbytes / HBM_BYTES_PER_S * 1e3, cycles / CLOCK_HZ * 1e3
+    return (tb, "bytes") if tb >= tc else (tc, "operations")
 
 
 def build() -> None:
@@ -292,6 +314,156 @@ def rotation_phase(dev, where: str) -> dict:
     return {"max_abs_err": max_abs, "times": times}
 
 
+def pitch_inputs(seed: int, rows: int, length: int, n_lags: int, dev):
+    """Serving-shape pitch_track inputs: xcorr [rows, n_lags], y [rows,
+    length + n_lags] ~ N(0, 3e4).  Rows 0-5 have y = 0 (syy stays 1, so
+    equal correlations tie exactly): three equal maxima, every lag equal,
+    nothing positive, the best at lag 0, the best at the last lag, two
+    equal maxima at both ends."""
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((rows, length + n_lags)) * 3e4).astype(np.float32)
+    xc = (rng.standard_normal((rows, n_lags)) * 1e12).astype(np.float32)
+    y[:6] = 0.0
+    xc[:6] = -1.0
+    xc[0, [3, n_lags // 2, n_lags - 2]] = 7e12
+    xc[1] = 4e12
+    xc[3, 0] = 9e12
+    xc[4, n_lags - 1] = 9e12
+    xc[5, [0, n_lags - 1]] = 2e12
+    return [torch.tensor(a, device=dev) for a in (xc, y)]
+
+
+def synth_inputs(seed: int, rows: int, el: int, dev):
+    """lpc_synth inputs: ext ~ N(0, 1) [rows, el], a small random LPC and
+    history; row 0 has a pole pair at radius 0.995 (near instability)."""
+    rng = np.random.default_rng(seed)
+    lpc = (rng.standard_normal((rows, 24)) * 0.03).astype(np.float32)
+    lpc[0] = 0.0
+    lpc[0, :2] = [-2 * 0.995 * np.cos(0.2), 0.995 ** 2]
+    ext = rng.standard_normal((rows, el)).astype(np.float32)
+    hist0 = rng.standard_normal((rows, 24)).astype(np.float32)
+    return [torch.tensor(a, device=dev) for a in (ext, lpc, hist0)]
+
+
+def check_pitch(xc, y, length: int, n_lags: int, label: str) -> None:
+    """pitch_track vs _pitch_track_ref: equal indices."""
+    from opus_tpu_torch.dsp.plc_scan import _pitch_track_ref, pitch_track
+
+    got = pitch_track(xc, y, length, n_lags)
+    want = _pitch_track_ref(xc, y, length, n_lags)
+    torch.cuda.synchronize()
+    diff = [int((a != b).sum()) for a, b in zip(got, want)]
+    print(f"kernel pitch_track {label} rows={xc.shape[0]} length={length} n_lags={n_lags}: "
+          f"indices differing from the plain version {diff}")
+    if any(diff):
+        raise AssertionError(f"pitch_track kernel disagrees with plain version ({label})")
+
+
+def check_synth(ext, lpc, hist0, label: str) -> float:
+    """lpc_synth and the f32 plain version vs the float64 plain version:
+    each within LPC_PEAK_TOL of every row's peak.  Returns the kernel's
+    max abs error against the float64 run."""
+    from opus_tpu_torch.dsp.plc_scan import _lpc_synth_ref, lpc_synth
+
+    want = _lpc_synth_ref(ext.double(), lpc.double(), hist0.double())
+    got = lpc_synth(ext, lpc, hist0)
+    plain = _lpc_synth_ref(ext, lpc, hist0)
+    torch.cuda.synchronize()
+    peak = want.abs().amax(dim=1).clamp_min(1e-30)
+    rel_k = float(((got.double() - want).abs().amax(dim=1) / peak).max())
+    rel_p = float(((plain.double() - want).abs().amax(dim=1) / peak).max())
+    err = float((got.double() - want).abs().max())
+    print(f"kernel lpc_synth {label} rows={ext.shape[0]} el={ext.shape[1]}: vs float64 "
+          f"max_abs_err={err} max_err_of_row_peak={rel_k}; f32 plain max_err_of_row_peak={rel_p}")
+    if not (bool(torch.isfinite(got).all()) and rel_k < LPC_PEAK_TOL and rel_p < LPC_PEAK_TOL):
+        raise AssertionError(f"lpc_synth off the float64 run ({label}): kernel {rel_k}, "
+                             f"plain {rel_p}")
+    return err
+
+
+def pitch_times(xc, y, length: int, n_lags: int) -> dict:
+    """ms of the wrapper, the bare kernel launch and the plain version,
+    with the bound: bytes (xcorr and y[:length + n_lags] read, two index
+    rows written) or the chain (4 cycles a sample of the initial energy
+    sum, then 8 a lag: an add and a max on the running energy)."""
+    from opus_tpu_torch.dsp import plc_scan
+
+    R = xc.shape[0]
+    sets = [[xc.clone(), same_layout(y), torch.empty(R, dtype=torch.int32, device=xc.device),
+             torch.empty(R, dtype=torch.int32, device=xc.device)] for _ in range(3)]
+    prepared = [plc_scan._pitch_kernel_args(a[0], a[1], length, n_lags, a[2], a[3])
+                for a in sets]
+    nbytes = R * (n_lags + length + n_lags + 2) * 4
+    bound, by = chain_bound_ms(nbytes, 4 * length + 8 * n_lags)
+    return {"ms": best_ms(cycled(lambda a: plc_scan.pitch_track(a[0], a[1], length, n_lags),
+                                 sets), 40),
+            "kernel_ms": best_ms(bare("opus_pitch_track", prepared), 40),
+            "plain_ms": cuda_ms(lambda: plc_scan._pitch_track_ref(xc, y, length, n_lags), 2),
+            "bound_ms": bound, "bound_by": by}
+
+
+def synth_times(ext, lpc, hist0) -> dict:
+    """ms of the wrapper, the bare kernel launch and the plain version,
+    with the bound: bytes (ext, lpc, hist0 read, out written) or the chain
+    (one multiply-add, 4 cycles, a sample from one output to the next)."""
+    from opus_tpu_torch.dsp import plc_scan
+
+    sets = [[a.clone() for a in (ext, lpc, hist0)] + [torch.empty_like(ext)] for _ in range(3)]
+    prepared = [plc_scan._synth_kernel_args(*a) for a in sets]
+    R, el = ext.shape
+    bound, by = chain_bound_ms(R * (2 * el + 48) * 4, 4 * el)
+    return {"ms": best_ms(cycled(lambda a: plc_scan.lpc_synth(*a[:3]), sets), 40),
+            "kernel_ms": best_ms(bare("opus_lpc_synth", prepared), 40),
+            "plain_ms": cuda_ms(lambda: plc_scan._lpc_synth_ref(ext, lpc, hist0), 2),
+            "bound_ms": bound, "bound_by": by}
+
+
+def plc_phase(dev, where: str) -> dict:
+    """The concealment's scan kernels vs their plain versions on synthetic
+    inputs at the whole-batch shapes (B=1024: pitch rows 1024, synthesis
+    rows 2048 of 1080 samples), coarse and fine searches; times there."""
+    fine = pitch_inputs(41, B, 664, 310, dev)
+    check_pitch(*fine, 664, 310, "synthetic fine")
+    coarse = pitch_inputs(42, B, 332, 155, dev)
+    # the coarse search reads y at stride 2: give the kernel such a view
+    y2 = torch.zeros(B, 2 * coarse[1].shape[1], device=dev)
+    y2[:, ::2] = coarse[1]
+    check_pitch(coarse[0], y2[:, ::2], 332, 155, "synthetic coarse, stride-2 y")
+    syn = synth_inputs(43, B * C, 1080, dev)
+    err = check_synth(*syn, "synthetic")
+    t_p = pitch_times(*fine, 664, 310)
+    t_s = synth_times(*syn)
+    for name, t, shape in (("pitch_track", t_p, f"rows={B} fine"),
+                           ("lpc_synth", t_s, f"rows={B * C} el=1080")):
+        print(f"time {name} {shape} synthetic: wrapper_ms={t['ms']} kernel_alone_ms="
+              f"{t['kernel_ms']} plain_ms={t['plain_ms']} bound_ms={t['bound_ms']} "
+              f"({t['bound_by']}) ({where})")
+    return {"synth_err": err, "pitch": t_p, "synth": t_s}
+
+
+def plc_on_real_inputs(captured: dict, where: str) -> dict:
+    """The scan kernels vs their plain versions on the inputs recorded at
+    the first lossy plan step (coarse and fine search, the synthesis), and
+    their times there."""
+    out = {"pitch": {}, "synth": {}, "synth_err": 0.0}
+    for (rows, n_lags), (xc, y, length, _) in sorted(captured["pitch"].items()):
+        label = "plan-loss step"
+        check_pitch(xc, y, length, n_lags, label)
+        t = pitch_times(xc, y, length, n_lags)
+        out["pitch"][rows, n_lags] = t
+        print(f"time pitch_track {label} rows={rows} n_lags={n_lags}: wrapper_ms={t['ms']} "
+              f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} "
+              f"bound_ms={t['bound_ms']} ({t['bound_by']}) ({where})")
+    for rows, args in sorted(captured["synth"].items()):
+        label = "plan-loss step"
+        out["synth_err"] = max(out["synth_err"], check_synth(*args, label))
+        t = synth_times(*args)
+        out["synth"][rows] = t
+        print(f"time lpc_synth {label} rows={rows}: wrapper_ms={t['ms']} kernel_alone_ms={t['kernel_ms']} "
+              f"plain_ms={t['plain_ms']} bound_ms={t['bound_ms']} ({t['bound_by']}) ({where})")
+    return out
+
+
 def make_payloads(seed: int = 1) -> list:
     """batches[step][stream]: 20 ms CELT payloads from the native encoder.
 
@@ -323,12 +495,33 @@ def with_losses(batches) -> list:
             for f, pk in enumerate(batches)]
 
 
+def with_plan_losses(batches) -> list:
+    """The plan-loss traffic: on steps 1-12 each stream loses its packet
+    with probability PLAN_LOSS_P (numpy, seed PLAN_LOSS_SEED), about 51 a
+    step; on step LOST_STEP every third stream also loses it (at least
+    342: more than the compact capacity); stream 1 loses steps 3-8 (five
+    pitch-regime frames, then the noise regime) and stream 2 steps 9-10."""
+    rng = np.random.default_rng(PLAN_LOSS_SEED)
+    out = []
+    for f, pk in enumerate(batches):
+        lost = np.zeros(B, bool)
+        if 1 <= f <= 12:
+            lost = rng.random(B) < PLAN_LOSS_P
+        if f == LOST_STEP:
+            lost |= np.arange(B) % 3 == 0
+        lost[1] |= 3 <= f <= 8
+        lost[2] |= f in (9, 10)
+        out.append([None if lost[i] else p for i, p in enumerate(pk)])
+    return out
+
+
 def serve_steps(dec, batches) -> dict:
-    """Serve one step per call; keep streams 0-3's PCM and each step's
-    post-filter activity (from the slot the step used)."""
+    """Serve one step per call; keep streams 0-3's PCM, each step's
+    post-filter activity and its count of streams flagged for device
+    concealment (from the slot the step used)."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
-    pcm, chunks = [], []
+    pcm, chunks, flagged = [], [], []
     for packets in batches:
         fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets], FRAME)
@@ -336,18 +529,22 @@ def serve_steps(dec, batches) -> dict:
         if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
             raise AssertionError("serve produced non-finite PCM")
         pcm.append(ring[:4].cpu().numpy().copy())  # the ring is rewritten in place
+        plan_slot = dec.transfer == "plan" and dec.plan_fallbacks == fallbacks
         if dec.transfer != "plan":
             slot = dec._slots[0]
-        elif dec.plan_fallbacks > fallbacks:
+        elif not plan_slot:
             slot = dec._plan_q14_slots[(dec.plan_fallbacks - 1) % 2]
         else:
             slot = dec._plan_slots[0]
         chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
         chunks.append(chunk if active else None)
+        flagged.append(int((slot["meta"][:, 14] & 1).sum()) if plan_slot else 0)
     if tuple(ring.shape) != (dec.batch, FRAME, C):
         raise AssertionError(f"serve produced {tuple(ring.shape)} PCM")
+    pitch = getattr(dec, "_serve_plc_pitch", None)
     return {"pcm": np.concatenate(pcm, axis=1), "ranges": dec.final_ranges()[:4],
-            "chunks": chunks}
+            "chunks": chunks, "flagged": flagged,
+            "plc_pitch": None if pitch is None else pitch[:4].cpu().numpy()}
 
 
 def same_layout(t):
@@ -356,16 +553,20 @@ def same_layout(t):
 
 
 def recording_inputs(captured: dict):
-    """Context manager: while it is open, the main path's rotation passes
-    and post-filter calls run as before, and the inputs of the first two
-    rotation passes and of the first post-filter call are copied into
-    captured["rotation"] and captured["postfilter"]."""
+    """Context manager: while it is open, the main path's rotation passes,
+    post-filter calls and concealment scans run as before, and the inputs
+    of the first two rotation passes and of the first post-filter call are
+    copied into captured["rotation"] and captured["postfilter"], those of
+    the first pitch_track call of each (rows, lags) into
+    captured["pitch"] and of the first lpc_synth call of each row count
+    into captured["synth"]."""
     import contextlib
 
-    from opus_tpu_torch.dsp import plan_exec, synthesis
+    from opus_tpu_torch.dsp import plan_exec, plc_exec, synthesis
 
     real_rot, real_pf = plan_exec.rot_pass, synthesis.postfilter
-    captured.update(rotation=[], postfilter=[])
+    real_pt, real_ls = plc_exec.pitch_track, plc_exec.lpc_synth
+    captured.update(rotation=[], postfilter=[], pitch={}, synth={})
 
     def rot(*args):
         if len(captured["rotation"]) < 2:
@@ -379,13 +580,24 @@ def recording_inputs(captured: dict):
                  same_layout(tapsets), chunk))
         return real_pf(y, hist, n, lm, periods, gains, tapsets, chunk)
 
+    def pt(xc, y, length, n_lags):
+        captured["pitch"].setdefault((xc.shape[0], n_lags),
+                                     (xc.clone(), same_layout(y), length, n_lags))
+        return real_pt(xc, y, length, n_lags)
+
+    def ls(ext, lpc, hist0):
+        captured["synth"].setdefault(ext.shape[0], [a.clone() for a in (ext, lpc, hist0)])
+        return real_ls(ext, lpc, hist0)
+
     @contextlib.contextmanager
     def patched():
         plan_exec.rot_pass, synthesis.postfilter = rot, pf
+        plc_exec.pitch_track, plc_exec.lpc_synth = pt, ls
         try:
             yield
         finally:
             plan_exec.rot_pass, synthesis.postfilter = real_rot, real_pf
+            plc_exec.pitch_track, plc_exec.lpc_synth = real_pt, real_ls
 
     return patched()
 
@@ -448,27 +660,43 @@ def postfilter_on_real_inputs(rec: tuple, where: str) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "times": t}
 
 
-def main_path(dev, transfer: str, batches, where: str) -> dict:
+def main_path(dev, name: str, batches, where: str) -> dict:
     """Serve every step through the port at B=1024 with the launch counts
     set to 0 just before and read just after; then check streams 0-3
-    against the port's CPU run of the same packets at B=4.  On the plan
-    transfer no step may fall back to q14, and the rotation kernel is
-    held to its plain version on the first step's recorded inputs."""
+    against the port's CPU run of the same packets at B=4.  `name` is p10,
+    plan or plan-loss (the plan transfer with losses).  On the plan
+    transfer no step may fall back to q14, and the kernels are held to
+    their plain versions on the recorded inputs; on plan-loss every step
+    with streams flagged for concealment must run a concealing variant."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
     from opus_tpu_torch.dsp.postfilter import postfilter
     from opus_tpu_torch.dsp.rotation import rot_pass
 
+    transfer = "p10" if name == "p10" else "plan"
     dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
+    variants = []  # the concealment variant of each plan step
+    real_step = dec._plan_serving_step
+
+    def spy(lm, chunk, active, size_class, with_plc=False):
+        variants.append(with_plc)
+        return real_step(lm, chunk, active, size_class, with_plc)
+
+    dec._plan_serving_step = spy
+    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
+                "lpc_synth": lpc_synth}
     captured = {}
     with recording_inputs(captured):
-        postfilter.launches = 0
-        rot_pass.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         got = serve_steps(dec, batches)
-        launches = {"postfilter": postfilter.launches, "rotation": rot_pass.launches}
+        launches = {k: fn.launches for k, fn in counters.items()}
     active = sum(c is not None for c in got["chunks"])
     plan_steps = len(batches) if transfer == "plan" else 0
-    print(f"main path {transfer}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
-          f"plan fallbacks {dec.plan_fallbacks}, kernel launches {launches}")
+    plc_steps = sum(v is not False for v in variants)
+    print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
+          f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
+          f"{got['flagged']}, concealment variants {variants}, kernel launches {launches}")
     if dec.plan_fallbacks:
         raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} plan steps fell back "
                              f"to the q14 spectrum")
@@ -478,25 +706,56 @@ def main_path(dev, transfer: str, batches, where: str) -> dict:
     if launches["rotation"] != 2 * plan_steps:
         raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
                              f"{plan_steps} plan steps (2 passes each)")
-    real = None
+    if launches["pitch_track"] != 2 * plc_steps or launches["lpc_synth"] != plc_steps:
+        raise AssertionError(f"concealment kernels launched {launches['pitch_track']} "
+                             f"(pitch_track) and {launches['lpc_synth']} (lpc_synth) times "
+                             f"over {plc_steps} concealing steps (2 and 1 each)")
     if transfer == "plan":
+        wrong = [t for t, (n, v) in enumerate(zip(got["flagged"], variants))
+                 if (n > 0) != (v is not False)]
+        if wrong:
+            raise AssertionError(f"steps {wrong}: the concealment variant does not match the "
+                                 f"flagged streams")
+    if name == "plan-loss" and not (any(v is True for v in variants)
+                                    and any(type(v) is int for v in variants)):
+        raise AssertionError(f"plan-loss ran variants {variants}: it needs at least one "
+                             f"compact and one whole-batch concealment")
+    if name != "plan-loss" and plc_steps:
+        raise AssertionError(f"{name} concealed on {plc_steps} steps")
+    real = None
+    if name == "plan":
         real = {"rotation": rotation_on_real_chains(captured["rotation"], where),
                 "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where)}
+    elif name == "plan-loss":
+        real = {"plc": plc_on_real_inputs(captured, where)}
 
     cpu = BatchedCeltDecoder(4, C, transfer=transfer, device="cpu")
     want = serve_steps(cpu, [pk[:4] for pk in batches])
+    pcm_err = 0.0
     for i in range(4):
-        err = float(np.abs(got["pcm"][i] - want["pcm"][i]).max())
-        print(f"stream {i} {transfer}: final_range {got['ranges'][i]} vs CPU "
-              f"{want['ranges'][i]}, max_abs_err={err}")
+        lost = [f for f, pk in enumerate(batches) if pk[i] is None]
+        split = (lost[0] if lost else len(batches)) * FRAME
+        diff = np.abs(got["pcm"][i] - want["pcm"][i])
+        before = float(diff[:split].max(initial=0.0))
+        after = float(diff[split:].max(initial=0.0))
+        pcm_err = max(pcm_err, before, after)
+        print(f"stream {i} {name}: lost steps {lost}, final_range {got['ranges'][i]} vs CPU "
+              f"{want['ranges'][i]}, max_abs_err before its first loss={before} from it on="
+              f"{after}")
         if got["ranges"][i] != want["ranges"][i]:
             raise AssertionError(f"stream {i}: final range differs from the CPU run")
-        if not err < CPU_PCM_TOL:
-            raise AssertionError(f"stream {i}: PCM err {err} against the CPU run")
-    return {"launches": launches, "chunks": got["chunks"], "real": real}
+        if not (before < CPU_PCM_TOL and after < (PLC_PCM_TOL if name == "plan-loss"
+                                                  else CPU_PCM_TOL)):
+            raise AssertionError(f"stream {i}: PCM err {before} / {after} against the CPU run")
+    if transfer == "plan":
+        print(f"{name}: carried pitch of streams 0-3 {got['plc_pitch']} vs CPU {want['plc_pitch']}")
+        if not np.array_equal(got["plc_pitch"], want["plc_pitch"]):
+            raise AssertionError("carried concealment pitch differs from the CPU run")
+    return {"launches": launches, "chunks": got["chunks"], "real": real,
+            "variants": variants, "pcm_err": pcm_err}
 
 
-def serve_rate(dev, transfer: str, batches, where: str) -> float:
+def serve_rate(dev, transfer: str, batches, where: str, name: str = "") -> float:
     """End-to-end serve rate, audio-s/s at B=1024: median of 5 runs of
     every step after a warm-up run (each ends by fetching the digest).
     A plan rate counts only when no step fell back to q14."""
@@ -514,7 +773,7 @@ def serve_rate(dev, transfer: str, batches, where: str) -> float:
                              f"while timing the rate")
     audio_s = B * len(batches) * FRAME / 48000.0
     rates = sorted(audio_s / r for r in runs)
-    print(f"serve e2e B={B} {transfer} {len(batches)} steps/run: audio_s_per_s median="
+    print(f"serve e2e B={B} {name or transfer} {len(batches)} steps/run: audio_s_per_s median="
           f"{statistics.median(rates)} runs={rates} ({where})")
     return statistics.median(rates)
 
@@ -590,20 +849,29 @@ def main() -> int:
     build()
     pf = postfilter_phase(dev, where)
     rot = rotation_phase(dev, where)
+    plc = plc_phase(dev, where)
 
     clean = make_payloads()
     lossy = with_losses(clean)
-    p10 = main_path(dev, "p10", lossy, where)
-    plan = main_path(dev, "plan", clean, where)
+    plan_lossy = with_plan_losses(clean)
+    paths = {"p10": main_path(dev, "p10", lossy, where),
+             "plan": main_path(dev, "plan", clean, where),
+             "plan-loss": main_path(dev, "plan-loss", plan_lossy, where)}
+    plan = paths["plan"]
 
     rate_p10 = serve_rate(dev, "p10", lossy, where)
     rate_plan = serve_rate(dev, "plan", clean, where)
+    rate_loss = serve_rate(dev, "plan", plan_lossy, where, "plan-loss")
     p10_device(dev, lossy, where)
     plan_device(dev, clean, where)
-    print(f"serve e2e summary B={B}: p10={rate_p10} plan={rate_plan} audio_s_per_s, "
-          f"plan fallbacks 0 ({where})")
+    print(f"serve e2e summary B={B}: p10={rate_p10} plan={rate_plan} plan-loss={rate_loss} "
+          f"audio_s_per_s, plan fallbacks 0 ({where})")
 
-    chunks = [c for c in p10["chunks"] + plan["chunks"] if c]
+    def launches(kernel):
+        by_path = {k: v["launches"][kernel] for k, v in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    chunks = [c for p in paths.values() for c in p["chunks"] if c]
     main_chunk = max(set(chunks), key=chunks.count)
     pf_t = pf["times"][main_chunk]
     pf_real = plan["real"]["postfilter"]
@@ -618,12 +886,15 @@ def main() -> int:
     n2 = 1920
     rot_bound, rot_by = bound_ms(6 * B * n2 * 4, 12 * B * n2)
     rot_real = plan["real"]["rotation"]
+    # The concealment scans at the first lossy step's shapes (the compact
+    # variant: 128 pitch rows, fine search; 256 synthesis rows).
+    plc_real = paths["plan-loss"]["real"]["plc"]
+    k = min(r for r, _ in plc_real["pitch"])
+    pt_t = plc_real["pitch"][k, 310]
+    ls_t = plc_real["synth"][min(plc_real["synth"])]
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
-         "replaces": "opus_tpu/dsp/pallas_pf.py:89",
-         "launches": p10["launches"]["postfilter"] + plan["launches"]["postfilter"],
-         "launches_by_path": {"p10": p10["launches"]["postfilter"],
-                              "plan": plan["launches"]["postfilter"]},
+         "replaces": "opus_tpu/dsp/pallas_pf.py:89", **launches("postfilter"),
          "max_abs_err": max(pf["max_abs_err"], pf_real["max_abs_err"]),
          "ms": pf_t["ms"], "plain_ms": pf_t["plain_ms"],
          "bound_ms": pf_bound, "bound_by": pf_by, "library_ms": None,
@@ -633,10 +904,7 @@ def main() -> int:
          "ms_real": pf_real["times"]["ms"], "kernel_ms_real": pf_real["times"]["kernel_ms"],
          "plain_ms_real": pf_real["times"]["plain_ms"], "bound_ms_real": pf_bound_real},
         {"name": "rotation", "route": "cuda", "source": "opus_tpu_torch/csrc/rotation.cu",
-         "replaces": "opus_tpu/dsp/pallas_rot.py:46",
-         "launches": plan["launches"]["rotation"],
-         "launches_by_path": {"p10": p10["launches"]["rotation"],
-                              "plan": plan["launches"]["rotation"]},
+         "replaces": "opus_tpu/dsp/pallas_rot.py:46", **launches("rotation"),
          "max_abs_err": max(rot["max_abs_err"], rot_real["max_abs_err"]),
          "ms": rot["times"]["ms"], "plain_ms": rot["times"]["plain_ms"],
          "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None,
@@ -644,6 +912,26 @@ def main() -> int:
          "kernel_ms": rot["times"]["kernel_ms"],
          **{f"{key}_real_{p}": rot_real["times"][p][key]
             for p in ("A", "B") for key in ("ms", "kernel_ms", "plain_ms")}},
+        {"name": "pitch_track", "route": "cuda", "source": "opus_tpu_torch/csrc/plc.cu",
+         "replaces": "opus_tpu/dsp/plc_exec.py:85", **launches("pitch_track"),
+         "max_abs_err": 0, "ms": pt_t["ms"], "plain_ms": pt_t["plain_ms"],
+         "bound_ms": pt_t["bound_ms"], "bound_by": pt_t["bound_by"], "library_ms": None,
+         "shape": f"rows={k} length=664 n_lags=310 (plan-loss step, fine search)",
+         "bound_note": "dependent chain: 4 cycles x 664 + 8 cycles x 310 at 1.98 GHz",
+         "kernel_ms": pt_t["kernel_ms"], "ms_syn_rows_1024": plc["pitch"]["ms"],
+         "kernel_ms_syn_rows_1024": plc["pitch"]["kernel_ms"],
+         "plain_ms_syn_rows_1024": plc["pitch"]["plain_ms"]},
+        {"name": "lpc_synth", "route": "cuda", "source": "opus_tpu_torch/csrc/plc.cu",
+         "replaces": "opus_tpu/dsp/plc_exec.py:298", **launches("lpc_synth"),
+         "max_abs_err": max(plc["synth_err"], plc_real["synth_err"]),
+         "max_abs_err_vs": "the plain version in float64",
+         "ms": ls_t["ms"], "plain_ms": ls_t["plain_ms"],
+         "bound_ms": ls_t["bound_ms"], "bound_by": ls_t["bound_by"], "library_ms": None,
+         "shape": f"rows={min(plc_real['synth'])} el=1080 (plan-loss step)",
+         "bound_note": "dependent chain: 4 cycles x 1080 samples at 1.98 GHz",
+         "kernel_ms": ls_t["kernel_ms"], "ms_syn_rows_2048": plc["synth"]["ms"],
+         "kernel_ms_syn_rows_2048": plc["synth"]["kernel_ms"],
+         "plain_ms_syn_rows_2048": plc["synth"]["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,6 +85,10 @@ def library() -> ctypes.CDLL:
     lib.opus_postfilter.argtypes = [p, p, ll, ll, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, p]
     lib.opus_rot_pass.restype = i
     lib.opus_rot_pass.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.opus_pitch_track.restype = i
+    lib.opus_pitch_track.argtypes = [p, ll, p, ll, ll, i, i, i, p, p, p]
+    lib.opus_lpc_synth.restype = i
+    lib.opus_lpc_synth.argtypes = [p, p, p, p, i, i, p]
     return lib
 
 

@@ -23,6 +23,7 @@ from ..dsp.synthesis import (
     make_plan_serving_step,
     make_serving_step,
 )
+from ..dsp.plc_scan import LPC_ORDER
 from ..dsp.tables import PACK_BITS, XQ_WORDS, packed_offsets, pf_chunk_for
 from ..native.frontend import (
     PLAN_ARENA_WORDS,
@@ -49,6 +50,13 @@ class BatchedCeltDecoder:
     #: step's maxima fit (96 kbps stereo music measures pvq <= 105,
     #: fill <= 3, iyw <= 114); anything larger runs the full class.
     PLAN_CLASSES = ((112, 8, 128), (160, 16, 160), (224, 64, 192))
+
+    #: Compact loss-concealment capacity: a plan step whose pitch-regime
+    #: loss count is at most this (and below the batch) conceals only its
+    #: flagged streams, as a sub-batch of this many rows; a step with more
+    #: conceals the whole batch.  At 5% loss and B=1024 a step loses
+    #: about 51.
+    PLC_COMPACT_K = 128
 
     def __init__(self, batch: int, channels: int = 2, downsample: int = 1,
                  transfer: str = "f32", *, device):
@@ -137,15 +145,24 @@ class BatchedCeltDecoder:
         return self._steps[key]
 
     def _plan_serving_step(self, lm: int, pf_chunk: int, pf_active: bool,
-                           size_class: tuple):
-        key = ("plan", lm, pf_chunk, pf_active, size_class)
+                           size_class: tuple, with_plc: bool | int = False):
+        key = ("plan", lm, pf_chunk, pf_active, size_class, with_plc)
         if key not in self._steps:
             self._steps[key] = make_plan_serving_step(
                 lm, self.batch, self.channels, self.downsample,
                 pf_chunk=pf_chunk, pf_active=pf_active, size_class=size_class,
-                device=self.device,
+                with_plc=with_plc, device=self.device,
             )
         return self._steps[key]
+
+    def _plc_variant(self, meta) -> bool | int:
+        """The step's concealment variant, from the slot's host meta (no
+        device sync): False without pitch-regime losses, the compact
+        capacity when the loss count fits it, else True (the whole batch)."""
+        n_lost = int((meta[:, 14] & 1).sum())
+        if 0 < n_lost <= self.PLC_COMPACT_K < self.batch:
+            return self.PLC_COMPACT_K
+        return n_lost > 0
 
     def _host_buffer(self, words: int):
         """(int32 host tensor, its CUDA event or None): pinned when the
@@ -293,8 +310,11 @@ class BatchedCeltDecoder:
 
         A step whose plan overflows the arena ships as a q14 spectrum for
         just that step (the synthesis state is shared by both step kinds).
-        A step with pitch-regime losses raises NotImplementedError: their
-        concealment runs on the device and is not ported yet.
+        A step with pitch-regime losses (a stream's first lost frames:
+        plane A ships an empty plan flagged in meta[14]) runs a step
+        variant that conceals them on the device (`_plc_variant`); the
+        conceal's LPC and pitch state, `_serve_plc_lpc` and
+        `_serve_plc_pitch`, persist across calls like the synthesis state.
         """
         if frame_size * self.downsample < 480:
             # 2.5/5 ms frames have n <= 2 bands, which plan mode rejects
@@ -314,6 +334,9 @@ class BatchedCeltDecoder:
             self._plan_q14_buf = torch.empty(packed_offsets(B, "q14")["end"],
                                              dtype=torch.int32, device=self.device)
         state, ring = self._serve_state_and_ring()
+        if getattr(self, "_serve_plc_lpc", None) is None:
+            self._serve_plc_lpc = torch.zeros(B, self.channels, LPC_ORDER, device=self.device)
+            self._serve_plc_pitch = torch.full((B,), 15, dtype=torch.int32, device=self.device)
         digest = None
         for t, packets in enumerate(batches):
             slot = self._plan_slots[t % n_slots]
@@ -331,17 +354,15 @@ class BatchedCeltDecoder:
                 continue
             meta = slot["meta"]
             lm = self._step_lm(meta)
-            if (meta[:, 14] & 1).any():
-                raise NotImplementedError(
-                    "plan step with pitch-regime losses: their device concealment "
-                    "(dsp/plc_exec.py) is not ported yet, ROADMAP.md Queue 1 item 2")
+            with_plc = self._plc_variant(meta)
             pf_chunk, pf_active = pf_chunk_for(meta[:, 6:9], slot["gains"])
             words = self._plan_upload_words(slot)
             self._upload(slot, self._plan_buf, words)
             ring = self._ring_for(ring, lm)
             step = self._plan_serving_step(lm, pf_chunk, pf_active,
-                                           self._plan_size_class(slot))
-            state, ring, digest = step(state, ring, self._plan_buf[:words])
+                                           self._plan_size_class(slot), with_plc)
+            plc = (self._serve_plc_lpc, self._serve_plc_pitch) if with_plc else ()
+            state, ring, digest = step(state, ring, self._plan_buf[:words], *plc)
         self._serve_state = state
         self._serve_ring = ring
         return digest.cpu().numpy()

@@ -238,7 +238,7 @@ def _make_serving_core(lm: int, channels: int, downsample: int, pf_chunk: int,
     hist = DECODE_BUFFER_SIZE - n
     _load_tables(lm, device)
 
-    def core(state: SynthState, ring, xs, ble, meta, gains):
+    def core(state: SynthState, ring, xs, ble, meta, gains, plc=None):
         silence = meta[:, 0] != 0
         short = meta[:, 1] != 0
         mono = meta[:, 3] == 1
@@ -270,14 +270,24 @@ def _make_serving_core(lm: int, channels: int, downsample: int, pf_chunk: int,
         y = torch.cat([state.mem[..., n:DECODE_BUFFER_SIZE], out], dim=-1)
         if pf_active:
             postfilter(y, hist, n, lm, periods, gains, tapsets, pf_chunk)
+        if plc is not None:
+            # Device pitch-regime loss concealment (dsp/plc_exec.py): the
+            # lost streams' frame (before de-emphasis) is the conceal's.
+            plc_mask, out_f_c, mem_c = plc
+            sel = plc_mask[:, None, None]
+            y[..., hist:] = torch.where(sel, out_f_c, y[..., hist:])
         ys, new_preemph = _deemphasis(y[..., hist:], state.preemph)
         pcm = ys[..., ::downsample] * (1.0 / 32768.0)
 
         # The new decode memory is y (history shifted by n, then the
-        # post-filtered frame), the block tail, and zero padding.
+        # post-filtered frame), the block tail, and zero padding; a lost
+        # stream's is the conceal's (mem_c, a tensor of its own: the
+        # conceal read state.mem before this overwrites it).
         state.mem[..., :DECODE_BUFFER_SIZE].copy_(y)
         state.mem[..., DECODE_BUFFER_SIZE : DECODE_BUFFER_SIZE + _HALF].copy_(tail)
         state.mem[..., DECODE_BUFFER_SIZE + _HALF :].zero_()
+        if plc is not None:
+            state.mem.copy_(torch.where(sel, mem_c, state.mem))
         state.preemph.copy_(new_preemph)
         ring.copy_(pcm.transpose(1, 2))
         return torch.stack([ring[0, 0, 0], ring[-1, -1, -1]])
@@ -328,7 +338,8 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
 
 def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 1,
                            pf_chunk: int = _CHUNK, pf_active: bool = True,
-                           size_class: tuple = (224, 64, 192), *, device):
+                           size_class: tuple = (224, 64, 192), with_plc: bool | int = False,
+                           *, device):
     """Serving step over a plan slot (dsp/plan_exec.py).
 
     Same contract as make_serving_step, but `buf` holds plane A's pulse-
@@ -339,6 +350,16 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
     executor rebuilds the band spectra, then the shared synthesis core
     runs.  size_class = (p_max, f_max, iyw) is the executor's size class,
     picked per step by the serve loop.
+
+    with_plc adds the device pitch-regime loss concealment
+    (dsp/plc_exec.py): streams flagged in meta[14] are concealed from the
+    decode memory, with the post-filter to undo from meta[15], and the
+    step becomes step(state, ring, buf, plc_lpc, plc_pitch), where
+    plc_lpc [B, C, 24] f32 and plc_pitch [B] int32 carry the conceal's
+    LPC and pitch and are updated in place on the flagged rows only.
+    with_plc=True conceals the whole batch; an int k conceals a
+    k-capacity sub-batch of the flagged streams (the serve loop picks it
+    when the step's loss count fits).
     """
     from .plan_exec import _f16_to_f32, make_plan_executor
 
@@ -389,11 +410,43 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
         arena = buf[o_arena:]
         return header, ble, meta, gains, bands, arena
 
+    if not with_plc:
+        @torch.no_grad()
+        def step(state: SynthState, ring, buf):
+            header, ble, meta, gains, bands, arena = unpack(buf)
+            xs = executor(header, bands, meta, arena)
+            digest = core(state, ring, xs, ble, meta, gains)
+            return state, ring, digest
+
+        return step
+
+    from .plc_exec import make_plc_conceal, make_plc_conceal_compact
+
+    if with_plc is True:
+        conceal = make_plc_conceal(lm, batch, channels, device=device)
+    else:
+        conceal = make_plc_conceal_compact(lm, batch, int(with_plc), channels, device=device)
+
     @torch.no_grad()
-    def step(state: SynthState, ring, buf):
+    def step_plc(state: SynthState, ring, buf, plc_lpc, plc_pitch):
         header, ble, meta, gains, bands, arena = unpack(buf)
         xs = executor(header, bands, meta, arena)
-        digest = core(state, ring, xs, ble, meta, gains)
+        plc_mask = (meta[:, 14] & 1) == 1
+        first = ((meta[:, 14] >> 1) & 1) == 1
+        m15 = meta[:, 15].to(torch.int64) & 0xFFFFFFFF  # the u32 word
+        u_period = m15 & 0x7FF
+        u_tapset = (m15 >> 11) & 3
+        u_gain = _f16_to_f32(m15 >> 16)
+        # The conceal reads state.mem before the core overwrites it.
+        if with_plc is True:
+            mem_c, new_lpc, new_pitch, out_f_c = conceal(
+                state.mem, plc_lpc, plc_pitch, first, u_period, u_gain, u_tapset)
+        else:
+            mem_c, new_lpc, new_pitch, out_f_c = conceal(
+                state.mem, plc_lpc, plc_pitch, plc_mask, first, u_period, u_gain, u_tapset)
+        digest = core(state, ring, xs, ble, meta, gains, plc=(plc_mask, out_f_c, mem_c))
+        plc_lpc.copy_(torch.where(plc_mask[:, None, None], new_lpc, plc_lpc))
+        plc_pitch.copy_(torch.where(plc_mask, new_pitch, plc_pitch))
         return state, ring, digest
 
-    return step
+    return step_plc

@@ -177,8 +177,9 @@ def test_four_streams_match_scalar_decoder(transfer):
     equal final ranges (bit-exact entropy decode), PCM within 4e-3 and
     conformance at or above PASS_QUALITY.  The p10 run loses stream 0's
     packet in one step (plane A conceals it in the noise regime, as the
-    scalar decoder does with skip_plc); the plan transfer serves no
-    pitch-regime loss yet, so its run loses none."""
+    scalar decoder does with skip_plc); the plan run loses none (its
+    pitch-regime losses are held to the scalar decoder in
+    test_plan_pitch_plc_matches_scalar_decoder)."""
     from opus_tpu.celt.decoder import CeltDecoder
     from opus_tpu.conformance import PASS_QUALITY, compare
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
@@ -205,17 +206,113 @@ def test_four_streams_match_scalar_decoder(transfer):
         assert compare(ref, pcm[i]) >= PASS_QUALITY
 
 
-def test_plan_pitch_loss_not_served_yet():
-    """A step with a pitch-regime loss (a first loss: plane A ships an
-    empty plan and flags it for device concealment) raises until device
-    PLC is ported."""
+# PCM gate with pitch-regime losses: the conceal is numerically touchy (a
+# 1e-7 relative change of the decode memory moves a concealed frame by up
+# to 3.9e-4 of its peak in the reference itself; tests/test_torch_plc.py).
+PLC_PCM_TOL = 1e-3
+
+
+def _serve_lossy_against_jax(B, lose, compact_k=None, NF=9, seed=9):
+    """Serve one step per call through the port's and the JAX plan loop;
+    return the worst PCM error over the steps after a stream's first loss
+    and before it, and check ranges and the carried pitch."""
+    from opus_tpu.batch.pipeline import BatchedCeltDecoder as JaxDecoder
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
 
-    batches = _payloads(2, 2, lose={(1, 0)})
-    dec = BatchedCeltDecoder(2, 2, transfer="plan", device="cpu")
-    dec.serve(batches[:1], FRAME)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.serve(batches[1:], FRAME)
+    batches = _payloads(B, NF, seed=seed, lose=lose)
+    ref = JaxDecoder(B, 2, use_native=True, transfer="plan")
+    port = BatchedCeltDecoder(B, 2, transfer="plan", device="cpu")
+    if compact_k is not None:
+        ref.PLC_COMPACT_K = port.PLC_COMPACT_K = compact_k
+    first = {i: min((f for f, j in lose if j == i), default=NF) for i in range(B)}
+    variants = []
+    for f, packets in enumerate(batches):
+        meta = {}
+        orig = port.native.decode_batch_plan_into
+
+        def spy(*a, **k):
+            slot = orig(*a, **k)
+            meta["variant"] = port._plc_variant(a[2]["meta"])
+            return slot
+
+        port.native.decode_batch_plan_into = spy
+        ref.serve([packets], FRAME)
+        port.serve([packets], FRAME)
+        port.native.decode_batch_plan_into = orig
+        variants.append(meta["variant"])
+        want = np.asarray(ref._serve_ring)
+        got = port._serve_ring.numpy()
+        assert np.isfinite(got).all()
+        for i in range(B):
+            err = float(np.abs(got[i] - want[i]).max())
+            assert err < (PCM_TOL if f < first[i] else PLC_PCM_TOL), (f, i, err)
+    assert port.final_ranges() == ref.final_ranges()
+    np.testing.assert_array_equal(port._serve_plc_pitch.numpy(), np.asarray(ref._serve_plc_pitch))
+    return variants
+
+
+def test_plan_pitch_loss_matches_jax():
+    """Pitch-regime losses on the plan path (plane A ships an empty plan
+    flagged for device concealment) against the JAX plan serve loop, one
+    step per call at B=4: an isolated first loss (stream 0), a two-frame
+    loss (stream 1, a continued loss) and a six-frame burst (stream 2: five
+    pitch-regime frames, then the noise regime).  Equal final ranges and
+    carried pitch, PCM within 1e-3 (1e-5 before a stream's first loss).
+    B=4 is at most the compact capacity, so every lossy step conceals the
+    whole batch."""
+    lose = {(2, 0), (2, 1), (3, 1)} | {(f, 2) for f in range(1, 7)}
+    variants = _serve_lossy_against_jax(4, lose)
+    assert variants == [False, True, True, True, True, True, False, False, False]
+
+
+def test_plan_pitch_loss_compact_matches_jax():
+    """B=8 with the compact capacity set to 2 on both decoders: steps with
+    one or two losses conceal a 2-row sub-batch (with a padding row when
+    one), the step with four conceals the whole batch."""
+    lose = {(2, 0), (2, 1), (3, 1), (3, 2), (3, 3), (3, 4), (4, 5), (5, 5), (5, 6)}
+    variants = _serve_lossy_against_jax(8, lose, compact_k=2, NF=7)
+    assert variants == [False, False, 2, True, 2, 2, False]
+
+
+def test_plan_pitch_plc_matches_scalar_decoder():
+    """The port of tests/test_native.py's device-PLC conformance test:
+    libopus-encoded harmonic CELT at 96 kbps, losses {3, 6, 7} and a
+    six-frame burst 9-14 (crossing into the noise regime), B=3, against
+    the scalar CeltDecoder under the same losses: conformance at or above
+    PASS_QUALITY (f32 on the device vs the scalar's f64: near-tie pitch
+    candidates may differ, and both are legal concealments)."""
+    from opus_tpu import oracle, parse_packet
+    from opus_tpu.celt.decoder import CeltDecoder
+    from opus_tpu.conformance import PASS_QUALITY, compare
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+
+    if not oracle.available():
+        pytest.skip("libopus not present")
+    F, NF, B = 960, 16, 3
+    rng = np.random.default_rng(5)
+    t = np.arange(F * NF) / 48000.0
+    ph = np.cumsum(2 * np.pi * (160 + 8 * np.sin(2 * np.pi * 1.5 * t)) / 48000.0)
+    sig = (0.5 * np.sin(ph) + 0.25 * np.sin(2 * ph) + 0.1 * np.sin(3 * ph)
+           + 0.01 * rng.standard_normal(t.size))
+    pcm = np.stack([sig, np.roll(sig, 11) * 0.9], -1).astype(np.float32)
+    enc = oracle.Encoder(48000, 2)
+    enc.ctl(oracle.SET_BITRATE, 96000)
+    enc.ctl(oracle.SET_FORCE_MODE, oracle.MODE_CELT_ONLY)
+    pays = []
+    for i in range(NF):
+        p = enc.encode_float(pcm[i * F : (i + 1) * F].ravel(), F)
+        pays.append(p[parse_packet(p).payload_offset :])
+    lose = {3, 6, 7} | set(range(9, 15))
+    scal = CeltDecoder(2, 1)
+    ref = np.concatenate([scal.decode(None if i in lose else pays[i], F) for i in range(NF)])
+    front = BatchedCeltDecoder(B, 2, transfer="plan", device="cpu")
+    outs = []
+    for i in range(NF):
+        front.serve([[None if i in lose else pays[i]] * B], F)
+        outs.append(front._serve_ring.numpy().copy())
+    ours = np.stack(outs, 1).reshape(B, NF * F, 2)
+    for b in range(B):
+        assert compare(ref, ours[b]) >= PASS_QUALITY
 
 
 def test_port_imports_no_jax():

@@ -3,12 +3,13 @@
     python3 tools/torch_profile.py [--steps N]
 
 Makes the payloads as chip_smoke.py does (B=1024 stereo 48 kHz CELT, 20 ms
-frames, 96 kbps, 13 steps).  For each transfer (p10, plan) it serves them
-once to warm up and once more timed, and prints where a serve() step's
-wall time goes: plane A, the serving step's issue on the host, the rest,
-and the device's busy and idle share under torch.profiler.  Then it
-decodes the first step into one slot and, for each serving step alone,
-prints beside the card's name and power limit:
+frames, 96 kbps, 13 steps).  For each main path (p10, plan, plan-loss:
+the plan transfer with chip_smoke.py's losses) it serves them once to
+warm up and once more timed, and prints where a serve() step's wall time
+goes: plane A, the serving step's issue on the host, the rest, and the
+device's busy and idle share under torch.profiler.  Then, for single
+serving steps on one slot, it prints beside the card's name and power
+limit:
 
 * the host time to issue one step (host clock around the call, no sync);
 * the device time per step by CUDA events over N back-to-back steps;
@@ -16,6 +17,11 @@ prints beside the card's name and power limit:
   of kernels per step, each hand-written kernel's device time and
   launches per step by its symbol name, and the ops that take the most
   device and host time.
+
+The steps: the first p10 and plan steps; and on plan-loss, step 1 (a
+compact concealment) and step 6 (a whole-batch one), each through its
+concealing variant and through the clean variant on the same slot, with
+the difference in kernels per step (the launch budget of concealment).
 
 The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
 CUDA device; exits non-zero without one.
@@ -34,7 +40,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 #: The symbols of the kernels in opus_tpu_torch/csrc/.
-KERNELS = ("postfilter_kernel", "rot_pass_kernel")
+KERNELS = ("postfilter_kernel", "rot_pass_kernel", "pitch_track_kernel", "lpc_synth_kernel")
 
 
 def _device_us(evt) -> float:
@@ -44,7 +50,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(name, step_fn, steps: int, where: str, out) -> None:
+def profile(name, step_fn, steps: int, where: str, out) -> float:
+    """Profile `steps` calls of step_fn; returns its kernels per step."""
     from chip_smoke import cuda_ms
 
     torch.cuda.synchronize()
@@ -82,9 +89,10 @@ def profile(name, step_fn, steps: int, where: str, out) -> None:
             out.write(ka.table(sort_by=key, row_limit=40) + "\n")
         except (KeyError, AttributeError, ValueError) as err:
             out.write(f"(no table by {key}: {err})\n")
+    return kernels
 
 
-def serve_breakdown(transfer: str, batches, where: str) -> None:
+def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
     """Where a serve() run's wall time goes, per step: plane A (the native
     decode), the serving step's issue on the host, and the rest (upload,
     picks, the final digest sync); plus the device busy share of the run
@@ -106,8 +114,8 @@ def serve_breakdown(transfer: str, batches, where: str) -> None:
                 spent[key] += time.perf_counter() - t0
         return run
 
-    name = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
-    setattr(dec.native, name, timed(getattr(dec.native, name), "plane A"))
+    decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
+    setattr(dec.native, decode, timed(getattr(dec.native, decode), "plane A"))
     for key in list(dec._steps):
         dec._steps[key] = timed(dec._steps[key], "step issue")
     t0 = time.perf_counter()
@@ -123,7 +131,7 @@ def serve_breakdown(transfer: str, batches, where: str) -> None:
         wall_prof = time.perf_counter() - t0
     cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in cuda) / 1e6
-    print(f"serve {transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
+    print(f"serve {name or transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
           f"plane_A={timed_run['plane A'] / n * 1e3} "
           f"step_issue={timed_run['step issue'] / n * 1e3} "
           f"rest={rest / n * 1e3}; under the profiler: wall ms/step={wall_prof / n * 1e3} "
@@ -149,8 +157,10 @@ def main() -> int:
     batches = cs.make_payloads()
     packets = batches[0]
     B, C, F = cs.B, cs.C, cs.FRAME
+    lossy = cs.with_plan_losses(batches)
     serve_breakdown("p10", cs.with_losses(batches), where)
     serve_breakdown("plan", batches, where)
+    serve_breakdown("plan", lossy, where, "plan-loss")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with open(ROOT / "chiprun_out" / "torch_profile.txt", "w") as out:
         for transfer in ("p10", "plan"):
@@ -172,6 +182,34 @@ def main() -> int:
             state = init_state(B, C, device=dev)
             ring = torch.zeros(B, F, C, device=dev)
             profile(f"{transfer} step", lambda: step(state, ring, buf), args.steps, where, out)
+        # plan-loss: decode up to each profiled step on the host, then
+        # profile that slot's concealing and clean variants.
+        dec = BatchedCeltDecoder(B, C, transfer="plan", device=dev)
+        slot = dec._alloc_plan_slots(1)[0]
+        for t, pk in enumerate(lossy[: cs.LOST_STEP + 1]):
+            dec.native.decode_batch_plan_into(pk, F, slot)
+            if t not in (1, cs.LOST_STEP):
+                continue
+            chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+            lm = int(slot["meta"][0, 2])
+            cls = dec._plan_size_class(slot)
+            variant = dec._plc_variant(slot["meta"])
+            n_lost = int((slot["meta"][:, 14] & 1).sum())
+            buf = slot["host"][: dec._plan_upload_words(slot)].to(dev)
+            state = init_state(B, C, device=dev)
+            ring = torch.zeros(B, F, C, device=dev)
+            lpc = torch.zeros(B, C, 24, device=dev)
+            pitch = torch.full((B,), 15, dtype=torch.int32, device=dev)
+            lossy_step = dec._plan_serving_step(lm, chunk, active, cls, variant)
+            clean_step = dec._plan_serving_step(lm, chunk, active, cls)
+            kind = "compact" if variant is not True else "whole-batch"
+            name = f"plan-loss step {t} ({n_lost} concealed, {kind} k={variant}, class {cls})"
+            k_loss = profile(name, lambda: lossy_step(state, ring, buf, lpc, pitch),
+                             args.steps, where, out)
+            k_clean = profile(f"plan-loss step {t} clean variant, same slot",
+                              lambda: clean_step(state, ring, buf), args.steps, where, out)
+            print(f"plan-loss step {t} ({kind}): concealment adds {k_loss - k_clean} kernels "
+                  f"per step ({k_loss} vs {k_clean}; budget 1000) ({where})")
     return 0
 
 
