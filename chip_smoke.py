@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds plane A (g++) and the CUDA kernels (nvcc, sm_90a; post-filter,
-spreading rotation and the two scans of the loss concealment) from the
-sources in the checkout, in parallel, and holds each kernel to its plain
-torch version at the serving shapes.  Then it serves 1024 stereo 48 kHz
-CELT streams (20 ms frames at 96 kbps, payloads from the port's native
-encoder) through three main paths of BatchedCeltDecoder:
+Builds plane A (g++: the CELT, SILK and Opus engines) and the CUDA
+kernels (nvcc, sm_90a; post-filter, spreading rotation and the two scans
+of the loss concealment) from the sources in the checkout, in parallel,
+and holds each kernel to its plain torch version at the serving shapes.
+Then it serves 1024 stereo 48 kHz CELT streams (20 ms frames at 96 kbps,
+payloads from the port's native encoder) through three main paths of
+BatchedCeltDecoder:
 
 * p10: transfer="p10", 13 steps, one of them with lost packets: the
   post-filter kernel must launch on every step with an active filter;
@@ -25,6 +26,30 @@ encoder) through three main paths of BatchedCeltDecoder:
   launches per such step, besides the plan path's gates.  The inputs of
   the first lossy step's scans are recorded and the kernels held to
   their plain versions on them.
+
+Then it serves mixed traffic through BatchedOpusDecoder (stream i of kind
+i % 3: the CELT streams' payloads, SILK WB mono at 60 B and hybrid SWB
+mono at 160 B from the port's native encoders, each voice stream with its
+own pitch) on three more main paths:
+
+* mixed: transfer="plan", silk_transfer="internal" (SILK resampled on
+  the device), 13 steps without loss: no step may fall back to the
+  packed path, rotation twice and post-filter once per step; the kernels
+  are held to their plain versions on the first step's recorded inputs,
+  whose rows include the 341 hybrid streams (start band 17);
+* mixed-loss: the same with 5% random loss on steps 1-12
+  (`with_mixed_losses`): SILK and hybrid losses are concealed in plane A,
+  CELT first losses on the device (2 pitch_track + 1 lpc_synth per
+  concealing step);
+* mixed-p10: transfer="p10" with 48 kHz SILK, mixed-loss's first 6 steps
+  (the packed mixed step and its concealing variant).
+
+Streams 0-5 (two of each kind) of each mixed path are checked against the
+port's CPU run at B=6 as streams 0-3 of the CELT paths are (below), with
+the 1e-3 gate from a CELT stream's first loss on; the mixed serve rates, the ToC parse and
+plane A times, the upload words (internal and 48 kHz SILK) and the mixed
+device step (CUDA events, kernels per step under the profiler) are
+printed.
 
 Each kernel is timed three ways, on the synthetic inputs and on the
 recorded ones: the wrapper's whole call, the bare library call on C
@@ -68,6 +93,11 @@ FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 CLOCK_HZ = 1.98e9
 PLAN_LOSS_P, PLAN_LOSS_SEED = 0.05, 7
 PLC_PCM_TOL = 1e-3  # card vs CPU once a stream has lost a frame (tests/test_torch_plc.py)
+MIXED_P10_STEPS = 6  # mixed-p10 serves the first 6 steps, to keep within the time limit
+MIXED_CPU_STREAMS = 6  # streams 0-5 (two of each kind) are held to the CPU run
+SILK_BYTES, HYBRID_BYTES = 60, 160  # SILK WB at 24 kbps, hybrid SWB at 64 kbps
+# ToC bytes: CELT FB 20 ms stereo (config 31), SILK WB 20 ms (9), hybrid SWB 20 ms (13)
+TOC_CELT, TOC_SILK, TOC_HYBRID = bytes([31 << 3 | 4]), bytes([9 << 3]), bytes([13 << 3])
 LPC_PEAK_TOL = 1e-3  # lpc_synth (kernel and f32 plain) vs float64, of each row's peak
 
 
@@ -602,7 +632,7 @@ def recording_inputs(captured: dict):
     return patched()
 
 
-def rotation_on_real_chains(captured: list, where: str) -> dict:
+def rotation_on_real_chains(captured: list, where: str, label: str = "plan step") -> dict:
     """The rotation kernel vs _rot_pass_ref on recorded main-path inputs,
     and its times there."""
     from opus_tpu_torch.dsp.rotation import _rot_pass_ref, rot_pass
@@ -616,22 +646,22 @@ def rotation_on_real_chains(captured: list, where: str) -> dict:
         heads = args[3] == 0
         chains = int(heads.sum())
         long_chains = int((heads & (args[4] >= 3)).sum())
-        print(f"kernel rotation on plan step pass {name} B={B} n2={args[0].shape[1]}: "
+        print(f"kernel rotation on {label} pass {name} B={B} n2={args[0].shape[1]}: "
               f"{chains} chains, {long_chains} of length >= 3, max_abs_err={err}")
         if long_chains == 0:
-            raise AssertionError(f"plan step pass {name} rotated no chain of length >= 3")
+            raise AssertionError(f"{label} pass {name} rotated no chain of length >= 3")
         if not bool(torch.isfinite(got).all()) or not err < ROT_ABS_TOL:
-            raise AssertionError(f"rotation kernel disagrees with plain version on the plan "
-                                 f"step's pass {name}: {err}")
+            raise AssertionError(f"rotation kernel disagrees with plain version on the "
+                                 f"{label}'s pass {name}: {err}")
         max_abs = max(max_abs, err)
         times[name] = rotation_times(args)
-        print(f"time rotation B={B} n2={args[0].shape[1]} plan step pass {name}: "
+        print(f"time rotation B={B} n2={args[0].shape[1]} {label} pass {name}: "
               f"wrapper_ms={times[name]['ms']} kernel_alone_ms={times[name]['kernel_ms']} "
               f"plain_ms={times[name]['plain_ms']} ({where})")
     return {"max_abs_err": max_abs, "times": times}
 
 
-def postfilter_on_real_inputs(rec: tuple, where: str) -> dict:
+def postfilter_on_real_inputs(rec: tuple, where: str, label: str = "plan step 1") -> dict:
     """The post-filter kernel vs _postfilter_ref on the first plan step's
     recorded inputs (periods and tapsets are the strided views of `meta`
     that the serving core passes), and its times there."""
@@ -645,19 +675,76 @@ def postfilter_on_real_inputs(rec: tuple, where: str) -> dict:
     rel = err / float(ref.abs().max())
     rows = pf_row_chunks(periods, gains, lm)
     live = rows[rows > 0]
-    print(f"kernel postfilter on plan step 1 B={B} lm={lm} batch chunk={chunk}: "
+    print(f"kernel postfilter on {label} B={B} lm={lm} batch chunk={chunk}: "
           f"{live.size} of {rows.size} streams active, per-stream chunk min={live.min()} "
           f"median={int(np.median(live))}, periods strides {periods.stride()}: "
           f"max_abs_err={err} max_rel_err={rel}")
     if not bool(torch.isfinite(got).all()) or not rel < PF_REL_TOL:
-        raise AssertionError(f"post-filter kernel disagrees with plain version on the plan "
-                             f"step's inputs: rel {rel}")
+        raise AssertionError(f"post-filter kernel disagrees with plain version on the "
+                             f"{label}'s inputs: rel {rel}")
     t = postfilter_times(y, hist, n, lm, periods, gains, tapsets, chunk)
     t["bytes"] = pf_bytes(periods, gains, n, lm)
-    print(f"time postfilter B={B} C={C} lm={lm} chunk={chunk} plan step 1: wrapper_ms={t['ms']} "
+    print(f"time postfilter B={B} C={C} lm={lm} chunk={chunk} {label}: wrapper_ms={t['ms']} "
           f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} "
           f"bytes_needed={t['bytes'][0]} bytes_whole_rows={t['bytes'][1]} ({where})")
     return {"max_abs_err": err, "max_rel_err": rel, "times": t}
+
+
+def check_launches(launches: dict, chunks: list, plan_steps: int, variants: list,
+                   flagged: list | None) -> int:
+    """The main-path launch gates: the post-filter once per step with an
+    active filter, the rotation twice per plan step, 2 pitch_track + 1
+    lpc_synth per concealing step; with `flagged` (streams flagged for
+    device concealment, per step), each step's variant must match it.
+    Returns the number of concealing steps."""
+    active = sum(c is not None for c in chunks)
+    plc_steps = sum(v is not False for v in variants)
+    if launches["postfilter"] == 0 or launches["postfilter"] != active:
+        raise AssertionError(f"post-filter kernel launched {launches['postfilter']} times over "
+                             f"{active} post-filter steps")
+    if launches["rotation"] != 2 * plan_steps:
+        raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
+                             f"{plan_steps} plan steps (2 passes each)")
+    if launches["pitch_track"] != 2 * plc_steps or launches["lpc_synth"] != plc_steps:
+        raise AssertionError(f"concealment kernels launched {launches['pitch_track']} "
+                             f"(pitch_track) and {launches['lpc_synth']} (lpc_synth) times "
+                             f"over {plc_steps} concealing steps (2 and 1 each)")
+    if flagged is not None:
+        wrong = [t for t, (n, v) in enumerate(zip(flagged, variants)) if (n > 0) != (v is not False)]
+        if wrong:
+            raise AssertionError(f"steps {wrong}: the concealment variant does not match the "
+                                 f"flagged streams")
+    return plc_steps
+
+
+def check_against_cpu(name: str, got: dict, want: dict, batches, streams: int,
+                      on_device) -> float:
+    """Streams 0..streams-1 of a card run vs the port's CPU run of the same
+    packets: equal final ranges and carried pitch, PCM within CPU_PCM_TOL
+    before a stream's first loss, and from it on too unless on_device(i)
+    (its losses are concealed on the device): then within PLC_PCM_TOL.
+    Returns the largest PCM error."""
+    pcm_err = 0.0
+    for i in range(streams):
+        lost = [f for f, pk in enumerate(batches) if pk[i] is None]
+        split = (lost[0] if lost else len(batches)) * FRAME
+        diff = np.abs(got["pcm"][i] - want["pcm"][i])
+        before = float(diff[:split].max(initial=0.0))
+        after = float(diff[split:].max(initial=0.0))
+        pcm_err = max(pcm_err, before, after)
+        print(f"stream {i} {name}: lost steps {lost}, final_range {got['ranges'][i]} vs CPU "
+              f"{want['ranges'][i]}, max_abs_err before its first loss={before} from it on="
+              f"{after}")
+        if got["ranges"][i] != want["ranges"][i]:
+            raise AssertionError(f"stream {i}: final range differs from the CPU run")
+        if not (before < CPU_PCM_TOL and after < (PLC_PCM_TOL if on_device(i) else CPU_PCM_TOL)):
+            raise AssertionError(f"stream {i}: PCM err {before} / {after} against the CPU run")
+    if got["plc_pitch"] is not None or want["plc_pitch"] is not None:
+        print(f"{name}: carried pitch of streams 0-{streams - 1} {got['plc_pitch']} vs CPU "
+              f"{want['plc_pitch']}")
+        if not np.array_equal(got["plc_pitch"], want["plc_pitch"]):
+            raise AssertionError("carried concealment pitch differs from the CPU run")
+    return pcm_err
 
 
 def main_path(dev, name: str, batches, where: str) -> dict:
@@ -691,31 +778,15 @@ def main_path(dev, name: str, batches, where: str) -> dict:
             fn.launches = 0
         got = serve_steps(dec, batches)
         launches = {k: fn.launches for k, fn in counters.items()}
-    active = sum(c is not None for c in got["chunks"])
-    plan_steps = len(batches) if transfer == "plan" else 0
-    plc_steps = sum(v is not False for v in variants)
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
           f"{got['flagged']}, concealment variants {variants}, kernel launches {launches}")
     if dec.plan_fallbacks:
         raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} plan steps fell back "
                              f"to the q14 spectrum")
-    if launches["postfilter"] == 0 or launches["postfilter"] != active:
-        raise AssertionError(f"post-filter kernel launched {launches['postfilter']} times over "
-                             f"{active} post-filter steps")
-    if launches["rotation"] != 2 * plan_steps:
-        raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
-                             f"{plan_steps} plan steps (2 passes each)")
-    if launches["pitch_track"] != 2 * plc_steps or launches["lpc_synth"] != plc_steps:
-        raise AssertionError(f"concealment kernels launched {launches['pitch_track']} "
-                             f"(pitch_track) and {launches['lpc_synth']} (lpc_synth) times "
-                             f"over {plc_steps} concealing steps (2 and 1 each)")
-    if transfer == "plan":
-        wrong = [t for t, (n, v) in enumerate(zip(got["flagged"], variants))
-                 if (n > 0) != (v is not False)]
-        if wrong:
-            raise AssertionError(f"steps {wrong}: the concealment variant does not match the "
-                                 f"flagged streams")
+    plc_steps = check_launches(launches, got["chunks"],
+                               len(batches) if transfer == "plan" else 0, variants,
+                               got["flagged"] if transfer == "plan" else None)
     if name == "plan-loss" and not (any(v is True for v in variants)
                                     and any(type(v) is int for v in variants)):
         raise AssertionError(f"plan-loss ran variants {variants}: it needs at least one "
@@ -731,26 +802,7 @@ def main_path(dev, name: str, batches, where: str) -> dict:
 
     cpu = BatchedCeltDecoder(4, C, transfer=transfer, device="cpu")
     want = serve_steps(cpu, [pk[:4] for pk in batches])
-    pcm_err = 0.0
-    for i in range(4):
-        lost = [f for f, pk in enumerate(batches) if pk[i] is None]
-        split = (lost[0] if lost else len(batches)) * FRAME
-        diff = np.abs(got["pcm"][i] - want["pcm"][i])
-        before = float(diff[:split].max(initial=0.0))
-        after = float(diff[split:].max(initial=0.0))
-        pcm_err = max(pcm_err, before, after)
-        print(f"stream {i} {name}: lost steps {lost}, final_range {got['ranges'][i]} vs CPU "
-              f"{want['ranges'][i]}, max_abs_err before its first loss={before} from it on="
-              f"{after}")
-        if got["ranges"][i] != want["ranges"][i]:
-            raise AssertionError(f"stream {i}: final range differs from the CPU run")
-        if not (before < CPU_PCM_TOL and after < (PLC_PCM_TOL if name == "plan-loss"
-                                                  else CPU_PCM_TOL)):
-            raise AssertionError(f"stream {i}: PCM err {before} / {after} against the CPU run")
-    if transfer == "plan":
-        print(f"{name}: carried pitch of streams 0-3 {got['plc_pitch']} vs CPU {want['plc_pitch']}")
-        if not np.array_equal(got["plc_pitch"], want["plc_pitch"]):
-            raise AssertionError("carried concealment pitch differs from the CPU run")
+    pcm_err = check_against_cpu(name, got, want, batches, 4, lambda i: name == "plan-loss")
     return {"launches": launches, "chunks": got["chunks"], "real": real,
             "variants": variants, "pcm_err": pcm_err}
 
@@ -834,6 +886,230 @@ def plan_device(dev, batches, where: str) -> None:
           f"ms={step_ms} audio_s_per_s={B * FRAME / 48000.0 / (step_ms / 1e3)} ({where})")
 
 
+def make_mixed_payloads(celt: list) -> list:
+    """batches[step][stream]: whole Opus packets of the mixed traffic.
+
+    Stream i is of kind i % 3: CELT 96 kbps stereo (stream i's payload of
+    the CELT paths behind a CELT FB 20 ms stereo ToC), SILK WB 20 ms mono
+    at 60 B (24 kbps) or hybrid SWB 20 ms mono at 160 B CBR (64 kbps),
+    from the port's native encoders.  Each voice stream is a pulse train
+    of its own pitch (100-280 Hz) with a 3 Hz vibrato, a slow level
+    swing and noise.
+    """
+    from opus_tpu_torch.native.frontend import NativeHybridEncoderBatch, NativeSilkEncoderBatch
+
+    rng = np.random.default_rng(3)
+    kinds = np.arange(B) % 3
+    silk_i, hyb_i = np.flatnonzero(kinds == 1), np.flatnonzero(kinds == 2)
+    f0 = 100.0 + 180.0 * rng.random(B)
+    silk_enc = NativeSilkEncoderBatch(len(silk_i), 16)
+    hyb_enc = NativeHybridEncoderBatch(len(hyb_i))
+
+    def voice(idx, rate: int, f: int):
+        n = rate // 50
+        t = (f * n + np.arange(n)) / rate
+        ph = 2 * np.pi * f0[idx, None] * t + 2.0 * np.sin(2 * np.pi * 3.0 * t)
+        level = 0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t + idx[:, None])
+        sig = 0.3 * np.sign(np.sin(ph)) * level + 0.02 * rng.standard_normal((len(idx), n))
+        return sig.astype(np.float32)
+
+    batches = []
+    for f in range(STEPS):
+        s_pay, s_len = silk_enc.encode_batch(np.round(voice(silk_i, 16000, f) * 32767)
+                                             .astype(np.int16), SILK_BYTES)
+        h_pay, h_len = hyb_enc.encode_batch(voice(hyb_i, 48000, f), HYBRID_BYTES)
+        row = [TOC_CELT + p if k == 0 else None for p, k in zip(celt[f], kinds)]
+        for j, i in enumerate(silk_i):
+            row[i] = TOC_SILK + bytes(s_pay[j, : s_len[j]])
+        for j, i in enumerate(hyb_i):
+            row[i] = TOC_HYBRID + bytes(h_pay[j, : h_len[j]])
+        batches.append(row)
+    return batches
+
+
+def with_mixed_losses(batches) -> list:
+    """The mixed-loss traffic: on steps 1-12 each stream loses its packet
+    with probability PLAN_LOSS_P (numpy, seed PLAN_LOSS_SEED).  SILK and
+    hybrid losses are concealed in plane A, a CELT stream's first lost
+    frames on the device."""
+    rng = np.random.default_rng(PLAN_LOSS_SEED)
+    out = []
+    for f, pk in enumerate(batches):
+        lost = rng.random(B) < PLAN_LOSS_P if 1 <= f <= 12 else np.zeros(B, bool)
+        out.append([None if lost[i] else p for i, p in enumerate(pk)])
+    return out
+
+
+def serve_mixed_steps(dec, batches) -> dict:
+    """Serve one step per call; keep streams 0-5's PCM, each step's
+    post-filter activity, count of streams flagged for device
+    concealment, hybrid streams and upload words."""
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+
+    pcm, chunks, flagged, hybrid, words = [], [], [], [], []
+    for packets in batches:
+        fallbacks = dec.plan_fallbacks
+        digest = dec.serve([packets])
+        ring = dec._serve_ring
+        if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
+            raise AssertionError("mixed serve produced non-finite PCM")
+        pcm.append(ring[:MIXED_CPU_STREAMS].cpu().numpy().copy())
+        if dec.transfer != "plan":
+            slot = dec._pk_slots[0]
+        elif dec.plan_fallbacks == fallbacks:
+            slot = dec._plan_slots[0]
+        else:
+            slot = dec._fallback_slots[(dec.plan_fallbacks - 1) % 2]
+        chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+        chunks.append(chunk if active else None)
+        flagged.append(int((slot["meta"][:, 14] & 1).sum()))
+        hybrid.append(int((slot["meta"][:, 4] == 17).sum()))
+        words.append(slot["upload_words"])
+    if tuple(ring.shape) != (dec.batch, FRAME, C):
+        raise AssertionError(f"mixed serve produced {tuple(ring.shape)} PCM")
+    return {"pcm": np.concatenate(pcm, axis=1), "ranges": dec.final_ranges()[:MIXED_CPU_STREAMS],
+            "chunks": chunks, "flagged": flagged, "hybrid": hybrid, "words": words,
+            "plc_pitch": dec._serve_plc_pitch[:MIXED_CPU_STREAMS].cpu().numpy()
+            if getattr(dec, "_serve_plc_pitch", None) is not None else None}
+
+
+def mixed_path(dev, name: str, batches, where: str) -> dict:
+    """Serve the mixed traffic through BatchedOpusDecoder at B=1024 with the
+    launch counts set to 0 just before and read just after.  `name` is
+    mixed (plan transfer, internal SILK), mixed-loss (the same with
+    losses) or mixed-p10 (p10, 48 kHz SILK, losses).  On the plan
+    transfer no step may fall back to the packed path; every step with
+    streams flagged for concealment must run a concealing variant; on
+    mixed the kernels are held to their plain versions on the first
+    step's recorded inputs (hybrid rows included).  Then streams 0-5 (two
+    of each kind) are checked against the port's CPU run at B=6."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
+    from opus_tpu_torch.dsp.postfilter import postfilter
+    from opus_tpu_torch.dsp.rotation import rot_pass
+
+    transfer, silk = ("p10", "pcm48") if name == "mixed-p10" else ("plan", "internal")
+    dec = BatchedOpusDecoder(B, C, transfer=transfer, silk_transfer=silk, device=dev)
+    variants = []
+    for attr in ("_mixed_plan_serving_step", "_mixed_serving_step"):
+        real = getattr(dec, attr)
+
+        def spy(*args, _real=real):
+            variants.append(args[-1])  # with_plc is the last argument of both
+            return _real(*args)
+
+        setattr(dec, attr, spy)
+    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
+                "lpc_synth": lpc_synth}
+    captured = {}
+    with recording_inputs(captured):
+        for fn in counters.values():
+            fn.launches = 0
+        got = serve_mixed_steps(dec, batches)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
+          f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
+          f"{got['flagged']}, concealment variants {variants}, hybrid streams {got['hybrid']}, "
+          f"upload words {got['words']}, kernel launches {launches}")
+    if dec.plan_fallbacks:
+        raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} mixed plan steps fell "
+                             f"back to the packed path")
+    plc_steps = check_launches(launches, got["chunks"],
+                               len(batches) if transfer == "plan" else 0, variants,
+                               got["flagged"])
+    if (name == "mixed") == (plc_steps > 0):
+        raise AssertionError(f"{name} concealed on {plc_steps} steps")
+    if min(got["hybrid"]) == 0:
+        raise AssertionError("a mixed step decoded no hybrid stream")
+    real = None
+    if name == "mixed":
+        label = f"mixed plan step 1 ({got['hybrid'][0]} hybrid streams)"
+        real = {"rotation": rotation_on_real_chains(captured["rotation"], where, label),
+                "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where, label)}
+
+    n = MIXED_CPU_STREAMS
+    cpu = BatchedOpusDecoder(n, C, transfer=transfer, silk_transfer=silk, device="cpu")
+    want = serve_mixed_steps(cpu, [pk[:n] for pk in batches])
+    # CELT streams (i % 3 == 0) conceal first losses on the device; SILK and
+    # hybrid losses are concealed in plane A, which is shared, so exact.
+    pcm_err = check_against_cpu(name, got, want, batches, n, lambda i: i % 3 == 0)
+    return {"launches": launches, "chunks": got["chunks"], "real": real, "variants": variants,
+            "pcm_err": pcm_err, "words": got["words"]}
+
+
+def mixed_rate(dev, batches, transfer: str, silk: str, where: str, name: str) -> float:
+    """End-to-end mixed serve rate, audio-s/s at B=1024: median of 5 runs
+    of every step after a warm-up run; no plan step may fall back."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    dec = BatchedOpusDecoder(B, C, transfer=transfer, silk_transfer=silk, device=dev)
+    dec.serve(batches)  # warm-up: cuBLAS, step factories, slots, resampler banks
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dec.serve(batches)
+        runs.append(time.perf_counter() - t0)
+    if dec.plan_fallbacks:
+        raise AssertionError(f"{dec.plan_fallbacks} {name} steps fell back while timing")
+    rates = sorted(B * len(batches) * FRAME / 48000.0 / r for r in runs)
+    print(f"serve e2e B={B} {name} {len(batches)} steps/run: audio_s_per_s median="
+          f"{statistics.median(rates)} runs={rates} ({where})")
+    return statistics.median(rates)
+
+
+def mixed_device(dev, batches, where: str) -> None:
+    """Host and device costs of a mixed plan step: the ToC parse and plane
+    A per step, the upload words per step with internal and with 48 kHz
+    SILK (and of the p10 fallback's packed slot), and the device step on a
+    resident slot (CUDA events; kernels per step under the profiler)."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.dsp.synthesis import init_state
+    from opus_tpu_torch.native.frontend import compact_plan_silk, pack_plan_silk
+
+    for silk in ("pcm48", "internal"):
+        dec = BatchedOpusDecoder(B, C, transfer="plan", silk_transfer=silk, device=dev)
+        slot = dec._alloc_plan_slots(FRAME, 1)[0][0]
+        toc_s, plane_a, words, rows = [], [], [], []
+        for packets in batches:
+            t0 = time.perf_counter()
+            _, toc = dec._toc_arrays(packets)
+            t1 = time.perf_counter()
+            dec.native.decode_batch_plan_into(toc, slot)
+            compact_plan_silk(slot, dec._silk_shape(FRAME)[0])
+            t2 = time.perf_counter()
+            toc_s.append(t1 - t0)
+            plane_a.append(t2 - t1)
+            silk_at, w = pack_plan_silk(slot)
+            words.append(w)
+            rows.append(len(slot["silk_rows"]))
+        pk_words = dec._alloc_packed_slots(FRAME, 1)[1].shape[0]
+        print(f"mixed plan {silk} B={B}: ToC parse ms/step median="
+              f"{statistics.median(toc_s) * 1e3} plane A ms/step median="
+              f"{statistics.median(plane_a) * 1e3} upload words/step median="
+              f"{statistics.median(words)} (fixed {slot['fixed_words']}, SILK rows median "
+              f"{statistics.median(rows)}); packed fallback slot words {pk_words} ({where})")
+    lm, chunk, active, with_plc, rates = dec._step_picks(slot)
+    step = dec._mixed_plan_serving_step(lm, chunk, active, dec._plan_size_class(slot), False)
+    buf = slot["host"][:w].to(dev)
+    state = init_state(B, C, device=dev, silk_hist=True)
+    ring = torch.zeros(B, FRAME, C, device=dev)
+
+    def run():
+        step(state, ring, buf, silk_at=silk_at, rates=rates)
+
+    step_ms = cuda_ms(run, 30)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 5
+    print(f"device step B={B} mixed plan internal lm={lm} chunk={chunk} words={w}: ms={step_ms} "
+          f"kernels/step={kernels} audio_s_per_s={B * FRAME / 48000.0 / (step_ms / 1e3)} "
+          f"({where})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -854,9 +1130,14 @@ def main() -> int:
     clean = make_payloads()
     lossy = with_losses(clean)
     plan_lossy = with_plan_losses(clean)
+    mixed = make_mixed_payloads(clean)
+    mixed_lossy = with_mixed_losses(mixed)
     paths = {"p10": main_path(dev, "p10", lossy, where),
              "plan": main_path(dev, "plan", clean, where),
-             "plan-loss": main_path(dev, "plan-loss", plan_lossy, where)}
+             "plan-loss": main_path(dev, "plan-loss", plan_lossy, where),
+             "mixed": mixed_path(dev, "mixed", mixed, where),
+             "mixed-loss": mixed_path(dev, "mixed-loss", mixed_lossy, where),
+             "mixed-p10": mixed_path(dev, "mixed-p10", mixed_lossy[:MIXED_P10_STEPS], where)}
     plan = paths["plan"]
 
     rate_p10 = serve_rate(dev, "p10", lossy, where)
@@ -866,6 +1147,11 @@ def main() -> int:
     plan_device(dev, clean, where)
     print(f"serve e2e summary B={B}: p10={rate_p10} plan={rate_plan} plan-loss={rate_loss} "
           f"audio_s_per_s, plan fallbacks 0 ({where})")
+    rate_mixed = mixed_rate(dev, mixed, "plan", "internal", where, "mixed")
+    rate_mixed_loss = mixed_rate(dev, mixed_lossy, "plan", "internal", where, "mixed-loss")
+    mixed_device(dev, mixed, where)
+    print(f"serve e2e mixed summary B={B} (plan, internal SILK): mixed={rate_mixed} "
+          f"mixed-loss={rate_mixed_loss} audio_s_per_s, plan fallbacks 0 ({where})")
 
     def launches(kernel):
         by_path = {k: v["launches"][kernel] for k, v in paths.items()}
@@ -895,7 +1181,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
          "replaces": "opus_tpu/dsp/pallas_pf.py:89", **launches("postfilter"),
-         "max_abs_err": max(pf["max_abs_err"], pf_real["max_abs_err"]),
+         "max_abs_err": max(pf["max_abs_err"], pf_real["max_abs_err"],
+                            paths["mixed"]["real"]["postfilter"]["max_abs_err"]),
          "ms": pf_t["ms"], "plain_ms": pf_t["plain_ms"],
          "bound_ms": pf_bound, "bound_by": pf_by, "library_ms": None,
          "shape": f"B={B} C={C} lm=3 chunk={main_chunk}",
@@ -905,7 +1192,8 @@ def main() -> int:
          "plain_ms_real": pf_real["times"]["plain_ms"], "bound_ms_real": pf_bound_real},
         {"name": "rotation", "route": "cuda", "source": "opus_tpu_torch/csrc/rotation.cu",
          "replaces": "opus_tpu/dsp/pallas_rot.py:46", **launches("rotation"),
-         "max_abs_err": max(rot["max_abs_err"], rot_real["max_abs_err"]),
+         "max_abs_err": max(rot["max_abs_err"], rot_real["max_abs_err"],
+                            paths["mixed"]["real"]["rotation"]["max_abs_err"]),
          "ms": rot["times"]["ms"], "plain_ms": rot["times"]["plain_ms"],
          "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None,
          "shape": f"B={B} n2={n2}",

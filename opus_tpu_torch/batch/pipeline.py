@@ -35,7 +35,83 @@ from ..native.frontend import (
 TRANSFERS = ("f32", "q14", "p12", "p10", "p8", "plan")
 
 
-class BatchedCeltDecoder:
+class ServingSlots:
+    """What both serve loops (BatchedCeltDecoder and the mixed-mode
+    BatchedOpusDecoder) share: pinned host slots with the CUDA event of
+    their last copy, the upload, and the host's per-step picks of the plan
+    executor's size class and of the concealment variant."""
+
+    #: Plan executor size classes (p_max, f_max, iyw): the leaf-table and
+    #: pulse-word windows.  The serve loop picks the smallest class the
+    #: step's maxima fit (96 kbps stereo music measures pvq <= 105,
+    #: fill <= 3, iyw <= 114); anything larger runs the full class.
+    PLAN_CLASSES = ((112, 8, 128), (160, 16, 160), (224, 64, 192))
+
+    #: Compact loss-concealment capacity: a step whose pitch-regime
+    #: loss count is at most this (and below the batch) conceals only its
+    #: flagged streams, as a sub-batch of this many rows; a step with more
+    #: conceals the whole batch.  At 5% loss and B=1024 a step loses
+    #: about 51.
+    PLC_COMPACT_K = 128
+
+    def _plc_variant(self, meta) -> bool | int:
+        """The step's concealment variant, from the slot's host meta (no
+        device sync): False without pitch-regime losses, the compact
+        capacity when the loss count fits it, else True (the whole batch)."""
+        n_lost = int((meta[:, 14] & 1).sum())
+        if 0 < n_lost <= self.PLC_COMPACT_K < self.batch:
+            return self.PLC_COMPACT_K
+        return n_lost > 0
+
+    def _host_buffer(self, words: int):
+        """(int32 host tensor, its CUDA event or None): pinned when the
+        device is a GPU, so the copy to the device is asynchronous."""
+        pin = self.device.type == "cuda"
+        return (torch.zeros(words, dtype=torch.int32, pin_memory=pin),
+                torch.cuda.Event() if pin else None)
+
+    def _plan_size_class(self, slot) -> tuple:
+        c = slot["header"][:, 1]
+        pvq_mx = int((c & 0x1FF).max(initial=0))
+        fill_mx = int(((c >> 9) & 0x1FF).max(initial=0))
+        # the fetch window may touch one word past the last started one
+        iyw_mx = int(slot["iy_spans"].max(initial=0)) + 1
+        for cls in self.PLAN_CLASSES:
+            if pvq_mx <= cls[0] and fill_mx <= cls[1] and iyw_mx <= cls[2]:
+                return cls
+        return self.PLAN_CLASSES[-1]
+
+    @staticmethod
+    def _step_lm(meta) -> int:
+        lm = int(meta[0, 2])
+        if not (meta[:, 2] == lm).all():
+            raise ValueError("mixed frame sizes in one step not supported")
+        return lm
+
+    def _upload(self, slot, dev_buf, words: int) -> None:
+        """Copy the slot's first `words` words to the device buffer and
+        mark the copy, so the slot is not rewritten while it is in flight."""
+        dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
+        if slot["copied"] is not None:
+            slot["copied"].record()
+
+    @staticmethod
+    def _reuse(slot) -> None:
+        if slot["copied"] is not None:
+            slot["copied"].synchronize()
+
+    def _serve_plc_state(self, channels: int):
+        """The conceal's carried LPC [B, C, 24] and pitch [B], made on
+        first use and kept across serve() calls."""
+        if getattr(self, "_serve_plc_lpc", None) is None:
+            self._serve_plc_lpc = torch.zeros(self.batch, channels, LPC_ORDER,
+                                              device=self.device)
+            self._serve_plc_pitch = torch.full((self.batch,), 15, dtype=torch.int32,
+                                               device=self.device)
+        return self._serve_plc_lpc, self._serve_plc_pitch
+
+
+class BatchedCeltDecoder(ServingSlots):
     """Decode a fixed batch of CELT streams, one frame per stream per step.
 
     transfer: "f32" = exact float band shapes; "q14" = int16 Q14 shapes;
@@ -44,19 +120,6 @@ class BatchedCeltDecoder:
     for every quantised mode); "plan" = plane A's pulse-vector plan, the
     spectra rebuilt on the device by the plan executor (serve() only).
     """
-
-    #: Plan executor size classes (p_max, f_max, iyw): the leaf-table and
-    #: pulse-word windows.  The serve loop picks the smallest class the
-    #: step's maxima fit (96 kbps stereo music measures pvq <= 105,
-    #: fill <= 3, iyw <= 114); anything larger runs the full class.
-    PLAN_CLASSES = ((112, 8, 128), (160, 16, 160), (224, 64, 192))
-
-    #: Compact loss-concealment capacity: a plan step whose pitch-regime
-    #: loss count is at most this (and below the batch) conceals only its
-    #: flagged streams, as a sub-batch of this many rows; a step with more
-    #: conceals the whole batch.  At 5% loss and B=1024 a step loses
-    #: about 51.
-    PLC_COMPACT_K = 128
 
     def __init__(self, batch: int, channels: int = 2, downsample: int = 1,
                  transfer: str = "f32", *, device):
@@ -155,22 +218,6 @@ class BatchedCeltDecoder:
             )
         return self._steps[key]
 
-    def _plc_variant(self, meta) -> bool | int:
-        """The step's concealment variant, from the slot's host meta (no
-        device sync): False without pitch-regime losses, the compact
-        capacity when the loss count fits it, else True (the whole batch)."""
-        n_lost = int((meta[:, 14] & 1).sum())
-        if 0 < n_lost <= self.PLC_COMPACT_K < self.batch:
-            return self.PLC_COMPACT_K
-        return n_lost > 0
-
-    def _host_buffer(self, words: int):
-        """(int32 host tensor, its CUDA event or None): pinned when the
-        device is a GPU, so the copy to the device is asynchronous."""
-        pin = self.device.type == "cuda"
-        return (torch.zeros(words, dtype=torch.int32, pin_memory=pin),
-                torch.cuda.Event() if pin else None)
-
     def _alloc_slots(self, n_slots: int, mode: str) -> list:
         """Packed serving slots, laid out as packed_offsets: one int32
         buffer per slot whose regions are numpy views that the native
@@ -208,42 +255,12 @@ class BatchedCeltDecoder:
             slots.append(slot)
         return slots
 
-    def _plan_size_class(self, slot) -> tuple:
-        c = slot["header"][:, 1]
-        pvq_mx = int((c & 0x1FF).max(initial=0))
-        fill_mx = int(((c >> 9) & 0x1FF).max(initial=0))
-        # the fetch window may touch one word past the last started one
-        iyw_mx = int(slot["iy_spans"].max(initial=0)) + 1
-        for cls in self.PLAN_CLASSES:
-            if pvq_mx <= cls[0] and fill_mx <= cls[1] and iyw_mx <= cls[2]:
-                return cls
-        return self.PLAN_CLASSES[-1]
-
     @staticmethod
     def _plan_upload_words(slot) -> int:
         """Words of the slot to upload: the fixed regions and the used arena
         prefix, with at least one arena word for the executor's clamped
         window fetch to land on."""
         return max(slot["used_words"], slot["fixed_words"] + 1)
-
-    @staticmethod
-    def _step_lm(meta) -> int:
-        lm = int(meta[0, 2])
-        if not (meta[:, 2] == lm).all():
-            raise ValueError("mixed frame sizes in one step not supported")
-        return lm
-
-    def _upload(self, slot, dev_buf, words: int) -> None:
-        """Copy the slot's first `words` words to the device buffer and
-        mark the copy, so the slot is not rewritten while it is in flight."""
-        dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
-        if slot["copied"] is not None:
-            slot["copied"].record()
-
-    @staticmethod
-    def _reuse(slot) -> None:
-        if slot["copied"] is not None:
-            slot["copied"].synchronize()
 
     def _ring_for(self, ring, lm: int):
         n = ((1 << lm) * modes.SHORT_MDCT_SIZE) // self.downsample
@@ -334,9 +351,7 @@ class BatchedCeltDecoder:
             self._plan_q14_buf = torch.empty(packed_offsets(B, "q14")["end"],
                                              dtype=torch.int32, device=self.device)
         state, ring = self._serve_state_and_ring()
-        if getattr(self, "_serve_plc_lpc", None) is None:
-            self._serve_plc_lpc = torch.zeros(B, self.channels, LPC_ORDER, device=self.device)
-            self._serve_plc_pitch = torch.full((B,), 15, dtype=torch.int32, device=self.device)
+        plc_state = self._serve_plc_state(self.channels)
         digest = None
         for t, packets in enumerate(batches):
             slot = self._plan_slots[t % n_slots]
@@ -361,7 +376,7 @@ class BatchedCeltDecoder:
             ring = self._ring_for(ring, lm)
             step = self._plan_serving_step(lm, pf_chunk, pf_active,
                                            self._plan_size_class(slot), with_plc)
-            plc = (self._serve_plc_lpc, self._serve_plc_pitch) if with_plc else ()
+            plc = plc_state if with_plc else ()
             state, ring, digest = step(state, ring, self._plan_buf[:words], *plc)
         self._serve_state = state
         self._serve_ring = ring

@@ -10,6 +10,12 @@ turns them into PCM for a whole batch of streams:
   (dsp/postfilter.py), its plain torch version on the CPU;
 * de-emphasis: a Toeplitz matmul per 120-sample block plus a carry chain.
 
+Mixed-mode serving (silk_mix) adds the SILK PCM of SILK and hybrid
+streams after synthesis (decoder.rs:722-729: out = celt + silk/32768):
+shipped at 48 kHz, or at the internal rate and resampled on the device by
+one matmul per rate over the streams of that rate (`_silk_resample`, banks
+from dsp/resample.py).
+
 Layouts are the reference's: planes [B, C, N], PCM [B, n, C], and the same
 packed-slot and plan-slot word offsets.  `make_synthesis_step` is
 functional (it returns a new state); the serving steps (packed:
@@ -20,13 +26,16 @@ for the reference's buffer donation.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..celt import modes
 from ..celt.modes import DECODE_BUFFER_SIZE
 from .postfilter import postfilter
+from .resample import TAIL, resample_matrices
 from .tables import (
     _DEEMPH_BLK,
     PACK_BITS,
@@ -55,12 +64,16 @@ class SynthState:
 
     mem: torch.Tensor  # [B, C, DECODE_BUFFER_SIZE + OVERLAP]
     preemph: torch.Tensor  # [B, C]
+    #: the internal-rate SILK input tail of the device resampler [B, C,
+    #: resample.TAIL] (mixed serving with the internal SILK transfer only)
+    silk_hist: torch.Tensor | None = None
 
 
-def init_state(batch: int, channels: int = 2, *, device) -> SynthState:
+def init_state(batch: int, channels: int = 2, *, device, silk_hist: bool = False) -> SynthState:
     return SynthState(
         mem=torch.zeros(batch, channels, DECODE_BUFFER_SIZE + OVERLAP, device=device),
         preemph=torch.zeros(batch, channels, device=device),
+        silk_hist=torch.zeros(batch, channels, TAIL, device=device) if silk_hist else None,
     )
 
 
@@ -227,18 +240,20 @@ def _unpack_pw(words, batch: int, n: int, w_bits: int):
 
 def _make_serving_core(lm: int, channels: int, downsample: int, pf_chunk: int,
                        pf_active: bool, *, device):
-    """Shared serving-step body: core(state, ring, xs, ble, meta, gains) ->
-    digest [2], with state and the PCM ring [B, frame, C] updated in place.
+    """Shared serving-step body: core(state, ring, xs, ble, meta, gains,
+    plc=None, silk=None) -> digest [2], with state and the PCM ring
+    [B, frame, C] updated in place.
 
     xs [B, 2, N] is the unit-norm band-shape plane, ble [B, 2, 21] the band
     log-energies, meta [B, 16] and gains [B, 3] the packed-slot planes.
     Long and short blocks are both synthesised and selected per stream.
+    silk [B, frame, C] (int16 scale, f32) is added to the PCM at 1/32768.
     """
     n = modes.SHORT_MDCT_SIZE << lm
     hist = DECODE_BUFFER_SIZE - n
     _load_tables(lm, device)
 
-    def core(state: SynthState, ring, xs, ble, meta, gains, plc=None):
+    def core(state: SynthState, ring, xs, ble, meta, gains, plc=None, silk=None):
         silence = meta[:, 0] != 0
         short = meta[:, 1] != 0
         mono = meta[:, 3] == 1
@@ -289,15 +304,147 @@ def _make_serving_core(lm: int, channels: int, downsample: int, pf_chunk: int,
         if plc is not None:
             state.mem.copy_(torch.where(sel, mem_c, state.mem))
         state.preemph.copy_(new_preemph)
-        ring.copy_(pcm.transpose(1, 2))
+        out = pcm.transpose(1, 2)
+        if silk is not None:
+            # decoder.rs:722-729: the SILK layer is added in the time domain
+            out = out + silk * (1.0 / 32768.0)
+        ring.copy_(out)
         return torch.stack([ring[0, 0, 0], ring[-1, -1, -1]])
 
     return core
 
 
+#: SILK internal rates, in the order of the resampler banks.
+SILK_KHZ = (8, 12, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _resample_banks(frame48: int) -> np.ndarray:
+    """[3, TAIL + frame48/3, frame48] per-rate resampler banks (8/12/16 kHz)."""
+    return resample_matrices(frame48)[0]
+
+
+def silk_rate_counts(desc: np.ndarray) -> tuple[int, int, int]:
+    """Host side of `_silk_resample`: how many streams ship SILK at 8, 12
+    and 16 kHz, from the descriptors plane A wrote (meta[12] & 0xFF)."""
+    khz = np.asarray(desc) & 0x1F
+    return tuple(int((khz == k).sum()) for k in SILK_KHZ)
+
+
+def _silk_resample(y16, desc, hist, lm: int, channels: int, rates: tuple):
+    """The device SILK resampler: internal-rate planar rows -> 48 kHz.
+
+    y16 [B, channels*Lmax] f32 (int16 scale, Lmax = frame48/3): channel-
+    planar internal-rate PCM as plane A writes it.  desc [B] int =
+    khz | (nrows-1)<<5 | reset<<6, 0 for a stream without SILK this frame.
+    hist [B, C, TAIL] is the carried input tail (SynthState.silk_hist).
+    rates = silk_rate_counts(desc), the host's count of streams per rate.
+
+    The streams are grouped by rate on the device (a stable sort of the
+    rate codes, so no sync), and each rate is one [n*C, TAIL+n_in] x
+    [TAIL+n_in, frame48] product over its own n streams.  A stream
+    without SILK gets zero PCM and a zero tail, as the reference's one-hot
+    selection gives (the resampler reset libopus performs when SILK
+    restarts).  Returns (silk48 [B, frame48, C], new_hist).
+    """
+    frame48 = (1 << lm) * modes.SHORT_MDCT_SIZE
+    lmax = frame48 // 3
+    B = y16.shape[0]
+    banks = on_device(_resample_banks, y16.device, frame48)
+    khz = desc & 0x1F
+    reset = ((desc >> 6) & 1) == 1
+    y = y16.reshape(B, channels, lmax)
+    if channels == 2:
+        # nrows == 1: one internal row (mono SILK in a stereo stream)
+        # goes to both output channels.
+        two_rows = ((desc >> 5) & 1) == 1
+        y = torch.where(two_rows[:, None, None], y, y[:, :1].expand(-1, 2, -1))
+    hist = torch.where(reset[:, None, None], 0.0, hist)
+    xext = torch.cat([hist, y], dim=-1)  # [B, C, TAIL + lmax]
+    order = torch.argsort(torch.where(khz == 0, 0x1F, khz), stable=True)
+    out = torch.zeros(B, channels, frame48, device=y16.device)
+    new_hist = torch.zeros_like(hist)
+    start = 0
+    for r, n in enumerate(rates):
+        if n == 0:
+            continue
+        idx = order[start : start + n]
+        start += n
+        n_in = frame48 * SILK_KHZ[r] // 48
+        x = xext.index_select(0, idx)[..., : TAIL + n_in]
+        o = torch.matmul(x.reshape(n * channels, TAIL + n_in), banks[r, : TAIL + n_in])
+        out.index_copy_(0, idx, o.reshape(n, channels, frame48))
+        # the next step's tail: the last TAIL input samples at this rate
+        new_hist.index_copy_(0, idx, x[..., n_in:])
+    return out.transpose(1, 2), new_hist
+
+
+def _silk_words(lm: int, channels: int, silk_internal: bool) -> tuple[int, int]:
+    """(int16 samples, int32 words) of one stream's SILK PCM in a slot."""
+    n = modes.SHORT_MDCT_SIZE << lm
+    samps = ((n // 3) if silk_internal else n) * channels
+    return samps, (samps + 1) // 2
+
+
+def _make_silk(lm: int, channels: int, silk_internal: bool, *, device):
+    """silk(state, pcm, meta, rates) -> (silk [B, frame, C] f32, the new
+    resampler tail or None): pcm [B, samps] int16-scale rows of the slot."""
+    n = modes.SHORT_MDCT_SIZE << lm
+    if silk_internal:
+        on_device(_resample_banks, device, n)
+
+    def silk(state, pcm, meta, rates):
+        if not silk_internal:
+            return pcm.reshape(-1, n, channels), None
+        if rates is None:
+            raise ValueError("the internal SILK transfer needs the step's rate counts")
+        return _silk_resample(pcm, meta[:, 12] & 0xFF, state.silk_hist, lm, channels, rates)
+
+    return silk
+
+
+def _make_conceal(lm: int, batch: int, channels: int, with_plc, *, device):
+    """The device pitch-regime conceal around a serving core (dsp/plc_exec.py):
+    around(state, meta, plc_lpc, plc_pitch, run_core) -> digest.  Streams
+    flagged in meta[14] are concealed from the decode memory, undoing the
+    post-filter of meta[15]; run_core(plc) runs the core with the merge,
+    then the flagged rows of plc_lpc [B, C, 24] and plc_pitch [B] are
+    updated in place.  with_plc=True conceals the whole batch; an int k
+    conceals a k-capacity sub-batch of the flagged streams."""
+    from .plan_exec import _f16_to_f32
+    from .plc_exec import make_plc_conceal, make_plc_conceal_compact
+
+    if with_plc is True:
+        conceal = make_plc_conceal(lm, batch, channels, device=device)
+    else:
+        conceal = make_plc_conceal_compact(lm, batch, int(with_plc), channels, device=device)
+
+    def around(state, meta, plc_lpc, plc_pitch, run_core):
+        plc_mask = (meta[:, 14] & 1) == 1
+        first = ((meta[:, 14] >> 1) & 1) == 1
+        m15 = meta[:, 15].to(torch.int64) & 0xFFFFFFFF  # the u32 word
+        u_period = m15 & 0x7FF
+        u_tapset = (m15 >> 11) & 3
+        u_gain = _f16_to_f32(m15 >> 16)
+        # The conceal reads state.mem before the core overwrites it.
+        if with_plc is True:
+            mem_c, new_lpc, new_pitch, out_f_c = conceal(
+                state.mem, plc_lpc, plc_pitch, first, u_period, u_gain, u_tapset)
+        else:
+            mem_c, new_lpc, new_pitch, out_f_c = conceal(
+                state.mem, plc_lpc, plc_pitch, plc_mask, first, u_period, u_gain, u_tapset)
+        digest = run_core((plc_mask, out_f_c, mem_c))
+        plc_lpc.copy_(torch.where(plc_mask[:, None, None], new_lpc, plc_lpc))
+        plc_pitch.copy_(torch.where(plc_mask, new_pitch, plc_pitch))
+        return digest
+
+    return around
+
+
 def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 1,
                       pf_chunk: int = _CHUNK, pf_active: bool = True,
-                      transfer: str = "q14", *, device):
+                      transfer: str = "q14", silk_mix: bool = False,
+                      silk_internal: bool = False, with_plc: bool | int = False, *, device):
     """Single-launch-sequence serving step over one packed plane-A buffer.
 
     step(state, ring, buf) -> (state, ring, digest[2]): `buf` is the slot's
@@ -306,14 +453,26 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
 
     pf_chunk/pf_active specialise the post-filter to the step's actual
     lags and gains; the host picks them per step with pf_chunk_for().
+
+    silk_mix adds the mixed pipeline's SILK region (packed_offsets with
+    silk_words): 48 kHz interleaved int16, or with silk_internal the
+    internal-rate rows that `_silk_resample` takes to 48 kHz, the step
+    then taking the host's rate counts as step(..., rates=(n8, n12, n16))
+    and updating state.silk_hist in place.  with_plc adds the device
+    conceal (`_make_conceal`): step(state, ring, buf, plc_lpc, plc_pitch).
     """
     if transfer != "q14" and transfer not in PACK_BITS:
         raise ValueError(f"packed transfer {transfer!r} is not q14 or one of {list(PACK_BITS)}")
+    if silk_mix and downsample != 1:
+        raise ValueError("mixed serving mixes at 48 kHz")
     n = modes.SHORT_MDCT_SIZE << lm
-    off = packed_offsets(batch, transfer)
+    silk_samps, silk_words = _silk_words(lm, channels, silk_internal)
+    off = packed_offsets(batch, transfer, silk_words if silk_mix else 0)
     core = _make_serving_core(lm, channels, downsample, pf_chunk, pf_active, device=device)
     if transfer in PACK_BITS:
         on_device(_unpack_index, device, PACK_BITS[transfer])
+    silk_of = _make_silk(lm, channels, silk_internal, device=device) if silk_mix else None
+    around = _make_conceal(lm, batch, channels, with_plc, device=device) if with_plc else None
 
     def unpack(buf):
         xq_w = buf[off["xq"] : off["silk"]]
@@ -329,17 +488,47 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
         return xs, ble, meta, gains
 
     @torch.no_grad()
-    def step(state: SynthState, ring, buf):
-        digest = core(state, ring, *unpack(buf))
-        return state, ring, digest
+    def step(state: SynthState, ring, buf, *plc, rates=None):
+        xs, ble, meta, gains = unpack(buf)
+        silk = (None, None)
+        if silk_mix:
+            rows = buf[off["silk"] : off["ble"]].view(torch.int16).reshape(batch, 2 * silk_words)
+            silk = silk_of(state, rows[:, :silk_samps].to(torch.float32), meta, rates)
+        return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
     return step
+
+
+def _run_core(core, around, state, ring, planes, plc, silk):
+    """A serving step's tail: the core (inside the conceal when the step
+    has one), then the new resampler tail into state.silk_hist.
+    planes = (xs, ble, meta, gains); silk = (PCM or None, tail or None)."""
+    pcm, new_hist = silk
+
+    def run(conceal=None):
+        return core(state, ring, *planes, plc=conceal, silk=pcm)
+
+    digest = around(state, planes[2], *plc, run) if around is not None else run()
+    if new_hist is not None:
+        state.silk_hist.copy_(new_hist)
+    return state, ring, digest
+
+
+def expand_silk_rows(rows, smap, silk_words: int, silk_samps: int):
+    """The compacted SILK block -> [B, silk_samps] f32, each stream's row:
+    rows [nrows * silk_words] int32 words (int16 pairs), smap [B] the row
+    of each stream; an out-of-range smap selects a zero row."""
+    nrows = rows.shape[0] // silk_words
+    pcm = rows[: nrows * silk_words].view(torch.int16).reshape(nrows, 2 * silk_words)
+    pcm = pcm[:, :silk_samps].to(torch.float32)
+    pcm = torch.cat([pcm, pcm.new_zeros(1, silk_samps)])
+    return pcm.index_select(0, torch.where((smap >= 0) & (smap < nrows), smap, nrows))
 
 
 def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 1,
                            pf_chunk: int = _CHUNK, pf_active: bool = True,
                            size_class: tuple = (224, 64, 192), with_plc: bool | int = False,
-                           *, device):
+                           silk_mix: bool = False, silk_internal: bool = False, *, device):
     """Serving step over a plan slot (dsp/plan_exec.py).
 
     Same contract as make_serving_step, but `buf` holds plane A's pulse-
@@ -360,21 +549,37 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
     with_plc=True conceals the whole batch; an int k conceals a
     k-capacity sub-batch of the flagged streams (the serve loop picks it
     when the step's loss count fits).
+
+    silk_mix adds the mixed pipeline's SILK PCM: an smap [B] word after
+    the fixed regions maps each stream to a row of the compacted int16
+    PCM block that follows the used arena (native/frontend.py
+    compact_plan_silk, pack_plan_silk).  The host passes the block's word
+    offset as step(..., silk_at=...) (and, with silk_internal, the rate
+    counts as rates=...); the rows run from there to the end of `buf`.
+    Each stream gathers its row, or a zero row for an out-of-range smap
+    (CELT-only streams and silent SILK frames): exact, as the reference's
+    one-hot product is.
     """
     from .plan_exec import _f16_to_f32, make_plan_executor
 
+    if silk_mix and downsample != 1:
+        raise ValueError("mixed serving mixes at 48 kHz")
     B = batch
     nbv = modes.NB_E_BANDS
     o_ble = B * 2
     o_dmeta = o_ble + B * nbv
     o_bw0 = o_dmeta + B * 5
     o_beff = o_bw0 + B * 16
-    o_arena = o_beff + B * 8
+    o_smap = o_beff + B * 8
+    o_arena = o_smap + (B if silk_mix else 0)
+    silk_samps, silk_words = _silk_words(lm, channels, silk_internal)
     p_max, f_max, iyw = size_class
     executor = make_plan_executor(lm, batch, p_max=p_max, f_max=f_max, iyw=iyw, device=device)
     core = _make_serving_core(lm, channels, downsample, pf_chunk, pf_active, device=device)
+    silk_of = _make_silk(lm, channels, silk_internal, device=device) if silk_mix else None
+    around = _make_conceal(lm, batch, channels, with_plc, device=device) if with_plc else None
 
-    def unpack(buf):
+    def unpack(buf, arena_end):
         header = buf[:o_ble].reshape(B, 2)
         blew = buf[o_ble:o_dmeta].reshape(B, nbv)
         # Q9 int16 pairs -> f32 log-energies (int32 >> is arithmetic, so
@@ -406,47 +611,43 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
         gains = torch.stack([_f16_to_f32(d2u), _f16_to_f32(d2u >> 16), _f16_to_f32(d3u)],
                             dim=1)
         bands = torch.cat([buf[o_bw0:o_beff].reshape(B, 16),
-                           buf[o_beff:o_arena].reshape(B, 8)], dim=1)
-        arena = buf[o_arena:]
+                           buf[o_beff:o_smap].reshape(B, 8)], dim=1)
+        arena = buf[o_arena:arena_end]
         return header, ble, meta, gains, bands, arena
 
-    if not with_plc:
-        @torch.no_grad()
-        def step(state: SynthState, ring, buf):
-            header, ble, meta, gains, bands, arena = unpack(buf)
-            xs = executor(header, bands, meta, arena)
-            digest = core(state, ring, xs, ble, meta, gains)
-            return state, ring, digest
+    @torch.no_grad()
+    def step(state: SynthState, ring, buf, *plc, silk_at=None, rates=None):
+        if silk_mix and silk_at is None:
+            raise ValueError("a mixed plan step needs the SILK rows' offset (silk_at)")
+        header, ble, meta, gains, bands, arena = unpack(buf, silk_at)
+        xs = executor(header, bands, meta, arena)
+        silk = (None, None)
+        if silk_mix:
+            rows = expand_silk_rows(buf[silk_at:], buf[o_smap:o_arena], silk_words, silk_samps)
+            silk = silk_of(state, rows, meta, rates)
+        return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
-        return step
+    return step
 
-    from .plc_exec import make_plc_conceal, make_plc_conceal_compact
 
-    if with_plc is True:
-        conceal = make_plc_conceal(lm, batch, channels, device=device)
-    else:
-        conceal = make_plc_conceal_compact(lm, batch, int(with_plc), channels, device=device)
+def make_opus_step(lm: int, short_blocks: bool, channels: int = 2, downsample: int = 1,
+                   *, device):
+    """Mode-mux step of decode_frames: make_pipeline_step's CELT synthesis
+    plus the SILK layer (decoder.rs:722-729).  silk48 is interleaved
+    int16 PCM at the output rate from plane A (zeros for CELT-only
+    streams; the whole signal for SILK-only streams, whose CELT spectra
+    are bound-masked to silence): out = celt + silk/32768.
+
+    step(state, xraw, mono, band_log_e2, bound, pf_periods, pf_gains,
+    pf_tapsets, silk48) -> (new_state, pcm [B, frame, C])."""
+    n = modes.SHORT_MDCT_SIZE << lm
+    inner = make_pipeline_step(lm, short_blocks, channels, downsample, device=device)
 
     @torch.no_grad()
-    def step_plc(state: SynthState, ring, buf, plc_lpc, plc_pitch):
-        header, ble, meta, gains, bands, arena = unpack(buf)
-        xs = executor(header, bands, meta, arena)
-        plc_mask = (meta[:, 14] & 1) == 1
-        first = ((meta[:, 14] >> 1) & 1) == 1
-        m15 = meta[:, 15].to(torch.int64) & 0xFFFFFFFF  # the u32 word
-        u_period = m15 & 0x7FF
-        u_tapset = (m15 >> 11) & 3
-        u_gain = _f16_to_f32(m15 >> 16)
-        # The conceal reads state.mem before the core overwrites it.
-        if with_plc is True:
-            mem_c, new_lpc, new_pitch, out_f_c = conceal(
-                state.mem, plc_lpc, plc_pitch, first, u_period, u_gain, u_tapset)
-        else:
-            mem_c, new_lpc, new_pitch, out_f_c = conceal(
-                state.mem, plc_lpc, plc_pitch, plc_mask, first, u_period, u_gain, u_tapset)
-        digest = core(state, ring, xs, ble, meta, gains, plc=(plc_mask, out_f_c, mem_c))
-        plc_lpc.copy_(torch.where(plc_mask[:, None, None], new_lpc, plc_lpc))
-        plc_pitch.copy_(torch.where(plc_mask, new_pitch, plc_pitch))
-        return state, ring, digest
+    def step(state, xraw, mono, band_log_e2, bound, pf_periods, pf_gains, pf_tapsets, silk48):
+        state, pcm = inner(state, xraw, mono, band_log_e2, bound, pf_periods, pf_gains,
+                           pf_tapsets)
+        silk = silk48[:, : (n // downsample) * channels].reshape(-1, n // downsample, channels)
+        return state, pcm + silk.to(torch.float32) * (1.0 / 32768.0)
 
-    return step_plc
+    return step

@@ -1,8 +1,12 @@
 """Build the port's plane-A engine: g++ -> a ctypes-loaded shared library.
 
-The CELT engine is one translation unit, celt_frontend.cpp, which
-includes celt_tables.h, ec.h and celt_encoder.inc; the four are
-byte-identical copies of opus_tpu/native's (tests/test_torch_native.py).
+Three translation units go into one library, as in the reference
+(opus_tpu/native/build.py): the CELT engine celt_frontend.cpp (which
+includes celt_tables.h, ec.h and celt_encoder.inc), the SILK engine
+silk_frontend.cpp (silk_tables.h, silk_encoder.inc: the SILK decoder and
+the voice and hybrid encoders) and the Opus layer opus_frontend.cpp, the
+mixed-mode batch decode over both.  All seven files are byte-identical
+copies of opus_tpu/native's (tests/test_torch_native.py).
 The compiler flags and the probed -march=native / -fopenmp are the
 reference's (opus_tpu/native/build.py).  The library goes to
 opus_tpu_torch/_build/, named by a hash of the sources and the final
@@ -22,7 +26,10 @@ import tempfile
 
 HERE = pathlib.Path(__file__).parent
 OUT = HERE.parent / "_build"
-SOURCES = ("celt_frontend.cpp", "celt_tables.h", "ec.h", "celt_encoder.inc")
+#: The translation units, then the files they include.
+UNITS = ("celt_frontend.cpp", "silk_frontend.cpp", "opus_frontend.cpp")
+SOURCES = UNITS + ("celt_tables.h", "ec.h", "celt_encoder.inc", "silk_tables.h",
+                   "silk_encoder.inc")
 _FLAGS = (
     # c++20: signed left-shift is defined (two's complement), as the
     # fixed-point planes assume.
@@ -54,7 +61,7 @@ def _host_cpu() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile celt_frontend.cpp unless a library for these sources, flags
+    """Compile the three units unless a library for these sources, flags
     and host CPU exists; returns its path."""
     cxx = os.environ.get("CXX", "g++")
     flags = list(_FLAGS) + [f for f in ("-march=native", "-fopenmp") if _flag_works(cxx, f)]
@@ -62,16 +69,29 @@ def build() -> pathlib.Path:
     for name in SOURCES:
         h.update(name.encode())
         h.update((HERE / name).read_bytes())
-    so = OUT / f"libceltfe_{h.hexdigest()[:16]}.so"
+    so = OUT / f"libopusfe_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     OUT.mkdir(exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [cxx, *flags, "-o", str(tmp), str(HERE / "celt_frontend.cpp")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
+    # One g++ per unit, all started together, then one link.
+    objs = [so.with_suffix(f".{os.getpid()}.{u}.o") for u in UNITS]
+    cmds = [[cxx, *flags, "-c", "-o", str(o), str(HERE / u)] for u, o in zip(UNITS, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    link = [cxx, *flags, "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"g++ failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ link failed ({res.returncode}):\n{' '.join(link)}\n"
+                               f"{res.stdout}{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

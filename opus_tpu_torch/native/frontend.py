@@ -1,10 +1,12 @@
-"""ctypes wrapper over the port's copy of the native CELT plane-A engine.
+"""ctypes wrapper over the port's copy of the native plane-A engines.
 
-A copy of what the port drives from opus_tpu/native/frontend.py: the
-batched decode into f32 / Q14 / packed / plan slots, the final ranges,
-the batched CELT encoder (payloads for tests and the smoke run) and the
-plan-slot helpers.  The engine is built from this directory's sources by
-build.py; the port imports nothing of `opus_tpu`.
+A copy of what the port drives from opus_tpu/native/frontend.py and
+opus_tpu/batch/opus_pipeline.py: the batched CELT decode into f32 / Q14 /
+packed / plan slots, the mixed-mode Opus decode (CELT, SILK and hybrid
+streams in one call) into packed and plan slots, the final ranges, the
+batched CELT, SILK and hybrid encoders (payloads for tests and the smoke
+run) and the plan-slot helpers.  The engines are built from this
+directory's sources by build.py; the port imports nothing of `opus_tpu`.
 """
 
 from __future__ import annotations
@@ -72,14 +74,62 @@ def _load():
         ctypes.POINTER(ctypes.c_int64),  # used_words out
         f32p, ctypes.c_int64,  # xdbg, stride
     ]
+    u8p, i16p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int16)
+    u32p, vpp = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_void_p)
     lib.celt_enc_create.restype = ctypes.c_void_p
     lib.celt_enc_create.argtypes = [ctypes.c_int]
     lib.celt_enc_destroy.argtypes = [ctypes.c_void_p]
     lib.celt_enc_encode_batch.restype = ctypes.c_int
     lib.celt_enc_encode_batch.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), f32p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
-    ]
+        vpp, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
+    # The Opus layer (opus_frontend.cpp), as opus_pipeline.py:66-112 binds it.
+    lib.opus_fe_create.restype = ctypes.c_void_p
+    lib.opus_fe_create.argtypes = [ctypes.c_int]
+    lib.opus_fe_destroy.argtypes = [ctypes.c_void_p]
+    lib.opus_fe_set_silk_internal.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    ohead = [vpp, ctypes.c_char_p, i32p, ctypes.c_int, i32p, i32p, ctypes.c_int, i32p]
+    lib.opus_fe_decode_batch.restype = ctypes.c_int
+    lib.opus_fe_decode_batch.argtypes = ohead + [
+        f32p, ctypes.c_int64, f32p, i32p, f32p, i16p, ctypes.c_int64, u32p, i32p]
+    lib.opus_fe_decode_batch_packed.restype = ctypes.c_int
+    lib.opus_fe_decode_batch_packed.argtypes = ohead + [
+        ctypes.c_int,  # mantissa bits
+        ctypes.c_int,  # device_plc: pitch-regime CELT losses -> device conceal
+        i16p,  # trans_out [B, 480*ch]
+        i32p, ctypes.c_int64, i16p, ctypes.c_int64, f32p, i32p, f32p, u32p, i32p]
+    lib.opus_fe_decode_batch_plan.restype = ctypes.c_int
+    lib.opus_fe_decode_batch_plan.argtypes = ohead + [
+        i32p, f32p, i32p, f32p, i32p,  # header, ble, meta, gains, bands
+        i32p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),  # arena, capacity, used
+        i16p, ctypes.c_int64,  # silk staging, stride
+        i16p,  # trans_out [B, 480*ch]
+        u32p, i32p]
+    # The SILK and hybrid encoders (silk_encoder.inc): payloads without ToC.
+    lib.silk_enc_create.restype = ctypes.c_void_p
+    lib.silk_enc_create.argtypes = [ctypes.c_int]
+    lib.silk_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.silk_enc_encode_batch.restype = ctypes.c_int
+    lib.silk_enc_encode_batch.argtypes = [
+        vpp, i16p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+        ctypes.c_int64, i32p]
+    lib.voice_enc_create.restype = ctypes.c_void_p
+    lib.voice_enc_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.voice_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.voice_enc_rng.restype = ctypes.c_uint32
+    lib.voice_enc_rng.argtypes = [ctypes.c_void_p]
+    lib.voice_enc_encode.restype = ctypes.c_int
+    lib.voice_enc_encode.argtypes = [ctypes.c_void_p, i16p, ctypes.c_int, ctypes.c_int, u8p]
+    lib.hybrid_enc_create.restype = ctypes.c_void_p
+    lib.hybrid_enc_create.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hybrid_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.hybrid_enc_rng.restype = ctypes.c_uint32
+    lib.hybrid_enc_rng.argtypes = [ctypes.c_void_p]
+    lib.hybrid_enc_encode.restype = ctypes.c_int
+    lib.hybrid_enc_encode.argtypes = [ctypes.c_void_p, f32p, ctypes.c_int, ctypes.c_int, u8p]
+    lib.hybrid_enc_encode_batch.restype = ctypes.c_int
+    lib.hybrid_enc_encode_batch.argtypes = [
+        vpp, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+        ctypes.c_int64, i32p]
     _LIB = lib
     return lib
 
@@ -227,21 +277,7 @@ class NativeBatchFrontEnd:
         if rc == -(B + 1):
             raise OverflowError("plan arena capacity exceeded")
         self._check(rc)
-        counts = slot["header"][:, 1]
-        if (int((counts & 0x1FF).max(initial=0)) > PLAN_P_MAX
-                or int(((counts >> 9) & 0x1FF).max(initial=0)) > PLAN_F_MAX
-                or int((counts >> 18).max(initial=0)) > PLAN_A_MAX):
-            # The native header pass enforces these same capacities and
-            # restores state before its OverflowError; reaching here means
-            # the two sides disagree and the state has already advanced,
-            # so a fallback re-decode would corrupt it.
-            raise RuntimeError("native plan guard missed a capacity the executor needs")
-        try:
-            slot["iy_spans"] = check_plan_iy_span(slot)
-        except OverflowError as e:
-            raise RuntimeError(f"native plan guard missed: {e}") from None
-        pack_plan_fixed(slot)
-        slot["used_words"] = slot["fixed_words"] + int(used.value)
+        finish_plan_slot(slot, int(used.value))
         slot["xdbg"] = xdbg
         return slot
 
@@ -279,9 +315,247 @@ class NativeCeltEncoderBatch:
         return out
 
 
-def plan_slot_views(buf: np.ndarray, batch: int, arena_words_per_stream: int) -> dict:
-    """A plan slot over `buf`, an int32 array of
-    batch * (PLAN_FIXED_WORDS + arena_words_per_stream) words.
+#: opus_fe_* codes a stream's failure reports (opus_pipeline.py).
+FALLBACK_REASON = {
+    -10: "mode switch mid-stream",
+    -11: "hybrid redundancy frame",
+    -12: "silk-only trailing redundancy",
+}
+
+
+class NativeOpusFrontEnd:
+    """Mixed-mode plane A (opus_frontend.cpp) for a fixed batch of
+    streams, one native Opus handle per stream: each stream may carry
+    CELT, SILK or hybrid packets, and one C call decodes every stream.
+
+    Inputs per step are the ToC arrays of the serve loop: the payloads
+    joined in `blob` (payload only, no ToC), `lens` (0 = lost, negative =
+    FEC from that next packet's SILK LBRR), `modes` (0 SILK, 1 hybrid, 2
+    CELT), `bws` (ToC bandwidth - NB), `schs` (coded channels) and the
+    frame length at 48 kHz.  Every call writes the final ranges into
+    `ranges` and the to-CELT transition rows (the SILK PLC whose first
+    5 ms crossfades a frame head) into `trans` [B, 480*C] int16, and
+    returns the per-stream transition descriptors `rcs` (> 0 on a
+    transition; see opus_frontend.cpp opus_fe_decode)."""
+
+    def __init__(self, batch: int, channels: int, silk_internal: bool):
+        self.lib = _load()
+        self.batch = batch
+        self.channels = channels
+        self.handles = (ctypes.c_void_p * batch)(
+            *[self.lib.opus_fe_create(channels) for _ in range(batch)])
+        for h in self.handles:
+            # internal-rate SILK PCM + descriptor (meta[12]) instead of
+            # 48 kHz PCM; fixed for the stream's lifetime
+            self.lib.opus_fe_set_silk_internal(h, int(silk_internal))
+        self.ranges = np.zeros(batch, np.uint32)
+        self.trans = np.zeros((batch, 480 * channels), np.int16)
+
+    def __del__(self):
+        try:
+            for h in self.handles:
+                self.lib.opus_fe_destroy(h)
+        except (AttributeError, TypeError):
+            pass
+
+    def _head(self, toc):
+        blob, lens, modes, bws, frame48, schs = toc
+        return (self.handles, blob, _ptr(lens, ctypes.c_int32), self.batch,
+                _ptr(modes, ctypes.c_int32), _ptr(bws, ctypes.c_int32), frame48,
+                _ptr(schs, ctypes.c_int32))
+
+    def _check(self, rc: int, rcs) -> None:
+        if rc != self.batch:
+            i = -rc - 1
+            code = int(rcs[i])
+            raise ValueError(f"stream {i}: {FALLBACK_REASON.get(code, f'codec error {code}')}")
+
+    def decode_batch(self, toc, slot: dict) -> np.ndarray:
+        """f32 spectra, planes and 48 kHz SILK PCM into `slot` (x [B,1920],
+        ble, meta, gains, silk [B, 2880*C]); returns rcs."""
+        rcs = np.zeros(self.batch, np.int32)
+        self._check(self.lib.opus_fe_decode_batch(
+            *self._head(toc), _ptr(slot["x"], ctypes.c_float), slot["x"].shape[1],
+            _ptr(slot["ble"], ctypes.c_float), _ptr(slot["meta"], ctypes.c_int32),
+            _ptr(slot["gains"], ctypes.c_float), _ptr(slot["silk"], ctypes.c_int16),
+            slot["silk"].shape[1], _ptr(self.ranges, ctypes.c_uint32),
+            _ptr(rcs, ctypes.c_int32)), rcs)
+        return rcs
+
+    def decode_batch_packed_into(self, toc, slot: dict, mant_bits: int) -> np.ndarray:
+        """A packed mixed slot (packed_offsets with silk_words): bit-packed
+        band shapes and SILK PCM; pitch-regime CELT losses are flagged for
+        the device conceal.  Returns rcs."""
+        rcs = np.zeros(self.batch, np.int32)
+        self._check(self.lib.opus_fe_decode_batch_packed(
+            *self._head(toc), mant_bits, 1, _ptr(self.trans, ctypes.c_int16),
+            _ptr(slot["xq"], ctypes.c_int32), slot["xq"].shape[1],
+            _ptr(slot["silk"], ctypes.c_int16), slot["silk"].shape[1],
+            _ptr(slot["ble"], ctypes.c_float), _ptr(slot["meta"], ctypes.c_int32),
+            _ptr(slot["gains"], ctypes.c_float), _ptr(self.ranges, ctypes.c_uint32),
+            _ptr(rcs, ctypes.c_int32)), rcs)
+        return rcs
+
+    def decode_batch_plan_into(self, toc, slot: dict) -> np.ndarray:
+        """A mixed plan slot (plan_slot_views with silk_words): the CELT
+        contribution as a plan, SILK PCM into the staging array, then the
+        row map (compact_plan_silk).  Raises OverflowError when the arena
+        or a plan capacity overflows (plane A restored every stream's state;
+        the caller decodes the same packets on the packed path).  Returns
+        rcs."""
+        B = self.batch
+        rcs = np.zeros(B, np.int32)
+        used = ctypes.c_int64(0)
+        rc = self.lib.opus_fe_decode_batch_plan(
+            *self._head(toc),
+            _ptr(slot["header"], ctypes.c_int32), _ptr(slot["ble"], ctypes.c_float),
+            _ptr(slot["meta"], ctypes.c_int32), _ptr(slot["gains"], ctypes.c_float),
+            _ptr(slot["bands"], ctypes.c_int32),
+            _ptr(slot["arena"], ctypes.c_int32), slot["arena"].shape[0], ctypes.byref(used),
+            _ptr(slot["silk"], ctypes.c_int16), slot["silk"].shape[1],
+            _ptr(self.trans, ctypes.c_int16), _ptr(self.ranges, ctypes.c_uint32),
+            _ptr(rcs, ctypes.c_int32))
+        if rc == -(B + 1):
+            raise OverflowError("plan arena capacity exceeded")
+        if rc != B and int(rcs[-rc - 1]) == -30:
+            raise OverflowError(f"stream {-rc - 1}: plan sink overflow")
+        self._check(rc, rcs)
+        finish_plan_slot(slot, int(used.value))
+        return rcs
+
+
+class NativeSilkEncoderBatch:
+    """Batch of native SILK encoders (silk_encoder.inc), one mono stream
+    each at a fixed internal rate, CBR; one C call encodes every stream.
+    Payloads carry no ToC byte."""
+
+    def __init__(self, batch: int, fs_khz: int):
+        self.lib = _load()
+        self.batch = batch
+        self.handles = (ctypes.c_void_p * batch)(
+            *[self.lib.silk_enc_create(fs_khz) for _ in range(batch)])
+        if not all(self.handles):
+            raise ValueError(f"bad internal rate {fs_khz}")
+
+    def __del__(self):
+        try:
+            for h in self.handles:
+                self.lib.silk_enc_destroy(h)
+        except (AttributeError, TypeError):
+            pass
+
+    def encode_batch(self, x: np.ndarray, budget_bytes: int):
+        """x [B, n] int16 at the internal rate -> (payloads [B, 1275] u8,
+        sizes [B])."""
+        B = self.batch
+        xi = np.ascontiguousarray(x, dtype=np.int16)
+        out = np.zeros((B, 1275), np.uint8)
+        sizes = np.zeros(B, np.int32)
+        rc = self.lib.silk_enc_encode_batch(
+            self.handles, _ptr(xi, ctypes.c_int16), xi.shape[1], B, xi.shape[1],
+            budget_bytes, _ptr(out, ctypes.c_uint8), out.shape[1], _ptr(sizes, ctypes.c_int32))
+        if rc != B:
+            raise ValueError(f"native silk batch encode failed at {-rc - 1}")
+        return out, sizes
+
+
+class NativeVoiceEncoder:
+    """Native mono voice (SILK-only) encoder with the input-rate
+    conversion inside (silk_encoder.inc VoiceEnc)."""
+
+    def __init__(self, fs_khz: int, in_rate_hz: int, fec: bool = False):
+        self.lib = _load()
+        self.h = self.lib.voice_enc_create(fs_khz, in_rate_hz, int(fec))
+        if not self.h:
+            raise ValueError(f"bad internal rate {fs_khz}")
+        self._out = np.zeros(1400, np.uint8)
+
+    def __del__(self):
+        try:
+            self.lib.voice_enc_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.voice_enc_rng(self.h))
+
+    def encode(self, x: np.ndarray, budget_bytes: int) -> bytes:
+        """x: int16 at the input rate (10/20/40/60 ms) -> SILK payload."""
+        xi = np.ascontiguousarray(x, dtype=np.int16)
+        rc = self.lib.voice_enc_encode(self.h, _ptr(xi, ctypes.c_int16), xi.shape[0],
+                                       budget_bytes, _ptr(self._out, ctypes.c_uint8))
+        if rc < 0:
+            raise ValueError(f"native voice encode failed: {rc}")
+        return bytes(self._out[:rc])
+
+
+class NativeHybridEncoder:
+    """Native hybrid encoder (SILK WB low band + CELT bands 17..19 behind
+    one range coder; SWB 20/10 ms, CBR).  Payloads carry no ToC (the
+    Opus layer's config 13 for 20 ms)."""
+
+    def __init__(self, channels: int = 1, fec: bool = False):
+        self.lib = _load()
+        self.channels = channels
+        self.h = self.lib.hybrid_enc_create(channels, int(fec))
+        self._out = np.zeros(1400, np.uint8)
+
+    def __del__(self):
+        try:
+            self.lib.hybrid_enc_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.hybrid_enc_rng(self.h))
+
+    def encode(self, pcm: np.ndarray, nb_bytes: int) -> bytes:
+        """pcm: [480|960] (mono) or [n, 2] (stereo) f32 in +-1 at 48 kHz."""
+        x = np.ascontiguousarray(pcm, dtype=np.float32).reshape(-1)
+        rc = self.lib.hybrid_enc_encode(self.h, _ptr(x, ctypes.c_float),
+                                        x.shape[0] // self.channels, nb_bytes,
+                                        _ptr(self._out, ctypes.c_uint8))
+        if rc < 0:
+            raise ValueError(f"native hybrid encode failed: {rc}")
+        return bytes(self._out[:rc])
+
+
+class NativeHybridEncoderBatch:
+    """Batch of mono native hybrid encoders; one C call per step."""
+
+    def __init__(self, batch: int):
+        self.lib = _load()
+        self.batch = batch
+        self.handles = (ctypes.c_void_p * batch)(
+            *[self.lib.hybrid_enc_create(1, 0) for _ in range(batch)])
+
+    def __del__(self):
+        try:
+            for h in self.handles:
+                self.lib.hybrid_enc_destroy(h)
+        except (AttributeError, TypeError):
+            pass
+
+    def encode_batch(self, pcm: np.ndarray, nb_bytes: int):
+        """pcm [B, n] f32 mono -> (payloads [B, nb_bytes] u8, sizes [B])."""
+        B = self.batch
+        x = np.ascontiguousarray(pcm, dtype=np.float32)
+        out = np.zeros((B, max(nb_bytes, 1)), np.uint8)
+        sizes = np.zeros(B, np.int32)
+        rc = self.lib.hybrid_enc_encode_batch(
+            self.handles, _ptr(x, ctypes.c_float), x.shape[1], B, x.shape[1], nb_bytes,
+            _ptr(out, ctypes.c_uint8), out.shape[1], _ptr(sizes, ctypes.c_int32))
+        if rc != B:
+            raise ValueError(f"native hybrid batch encode failed at {-rc - 1}")
+        return out, sizes
+
+
+def plan_slot_views(buf: np.ndarray, batch: int, arena_words_per_stream: int,
+                    silk_words: int = 0) -> dict:
+    """A plan slot over `buf`, an int32 array of plan_slot_words(batch,
+    arena_words_per_stream, silk_words) words.
 
     `buf` holds the uploaded form: the packed fixed regions (header
     [B,2] — the device derives iy_rel from the counts word —, ble Q9
@@ -289,19 +563,34 @@ def plan_slot_views(buf: np.ndarray, batch: int, arena_words_per_stream: int) ->
     variable-fill arena of which only the used prefix ships
     (`used_words` after each decode).  The full-precision staging arrays
     (header/ble/meta/gains/bands) stay on the host for the serve loop's
-    picks and the numpy oracle; they are not uploaded."""
+    picks and the numpy oracle; they are not uploaded.
+
+    silk_words > 0 makes a mixed-mode slot (the reference's
+    alloc_plan_slots(..., silk_words)): the fixed regions gain an smap
+    [B] word, the row of each stream's SILK PCM in the compacted block
+    (compact_plan_silk); `silk` is a host staging array [B, 2*silk_words]
+    int16 that plane A writes; and `buf` keeps B*silk_words words past
+    the arena, where pack_plan_silk lands the compacted rows right after
+    the used arena prefix."""
     B = batch
-    fixed = B * PLAN_FIXED_WORDS
-    if buf.dtype != np.int32 or buf.shape != (fixed + B * arena_words_per_stream,):
-        raise ValueError(f"plan slot buffer must be int32 [{fixed + B * arena_words_per_stream}]")
+    fixed = B * (PLAN_FIXED_WORDS + (1 if silk_words else 0))
+    words = plan_slot_words(B, arena_words_per_stream, silk_words)
+    if buf.dtype != np.int32 or buf.shape != (words,):
+        raise ValueError(f"plan slot buffer must be int32 [{words}]")
     o = 0
     views = {}
     for name, width in (("hdr_p", 2), ("ble_p", _NB), ("dmeta", 5), ("bw0_p", 16),
                         ("beff_p", 8)):
         views[name] = buf[o : o + B * width].reshape(B, width)
         o += B * width
+    silk = smap = None
+    if silk_words:
+        smap = buf[o : o + B]
+        o += B
+        silk = np.zeros((B, 2 * silk_words), np.int16)
     return dict(
-        buf=buf, mode="plan", fixed_words=fixed, arena=buf[o:], **views,
+        buf=buf, mode="plan", fixed_words=fixed, silk_words=silk_words, smap=smap,
+        silk=silk, arena=buf[o : o + B * arena_words_per_stream], **views,
         header=np.zeros((B, 4), np.int32),
         ble=np.zeros((B, 2, _NB), np.float32),
         meta=np.zeros((B, 16), np.int32),
@@ -311,12 +600,72 @@ def plan_slot_views(buf: np.ndarray, batch: int, arena_words_per_stream: int) ->
     )
 
 
+def plan_slot_words(batch: int, arena_words_per_stream: int = PLAN_ARENA_WORDS,
+                    silk_words: int = 0) -> int:
+    """int32 words of a plan slot's buffer: fixed regions (and the smap
+    word of a mixed slot), the arena, and the landing room of the
+    compacted SILK rows."""
+    return batch * (PLAN_FIXED_WORDS + (1 if silk_words else 0) + arena_words_per_stream
+                    + silk_words)
+
+
 def alloc_plan_slots(batch: int, n_slots: int = 4,
-                     arena_words_per_stream: int = PLAN_ARENA_WORDS) -> list:
+                     arena_words_per_stream: int = PLAN_ARENA_WORDS,
+                     silk_words: int = 0) -> list:
     """n_slots plan slots over fresh numpy buffers (see plan_slot_views)."""
-    words = batch * (PLAN_FIXED_WORDS + arena_words_per_stream)
-    return [plan_slot_views(np.zeros(words, np.int32), batch, arena_words_per_stream)
+    words = plan_slot_words(batch, arena_words_per_stream, silk_words)
+    return [plan_slot_views(np.zeros(words, np.int32), batch, arena_words_per_stream,
+                            silk_words)
             for _ in range(n_slots)]
+
+
+def finish_plan_slot(slot: dict, used_arena_words: int) -> None:
+    """After a successful native plan decode: check the capacities the
+    executor needs, record the iy spans, pack the uploaded fixed regions
+    and the used prefix length."""
+    counts = slot["header"][:, 1]
+    if (int((counts & 0x1FF).max(initial=0)) > PLAN_P_MAX
+            or int(((counts >> 9) & 0x1FF).max(initial=0)) > PLAN_F_MAX
+            or int((counts >> 18).max(initial=0)) > PLAN_A_MAX):
+        # The native header pass enforces these same capacities and
+        # restores state before its OverflowError; reaching here means
+        # the two sides disagree and the state has already advanced,
+        # so a fallback re-decode would corrupt it.
+        raise RuntimeError("native plan guard missed a capacity the executor needs")
+    try:
+        slot["iy_spans"] = check_plan_iy_span(slot)
+    except OverflowError as e:
+        raise RuntimeError(f"native plan guard missed: {e}") from None
+    pack_plan_fixed(slot)
+    slot["used_words"] = slot["fixed_words"] + used_arena_words
+
+
+def compact_plan_silk(slot: dict, n_pcm: int) -> int:
+    """Build the SILK row map after a mixed plan decode: smap[b] = row of
+    stream b's PCM in the compacted block (an out-of-range sentinel
+    selects the zero row on the device).  All-zero rows — every CELT-only
+    stream, and silent SILK frames, for which zero is exact — ship no
+    bytes.  Returns the row count."""
+    nz = slot["silk"][:, :n_pcm].any(axis=1)
+    rows = np.flatnonzero(nz)
+    slot["smap"][:] = 0x7FFFFF
+    slot["smap"][rows] = np.arange(len(rows), dtype=np.int32)
+    slot["silk_rows"] = rows
+    return len(rows)
+
+
+def pack_plan_silk(slot: dict) -> tuple[int, int]:
+    """Copy the compacted SILK rows into the upload buffer right after the
+    used arena prefix (at least one arena word, as the executor's clamped
+    fetch needs).  Returns (the rows' word offset, the upload prefix
+    length in words); the device step reads the arena up to the offset
+    and the rows from it on."""
+    sw = slot["silk_words"]
+    at = max(slot["used_words"], slot["fixed_words"] + 1)
+    rows = slot["silk_rows"]
+    dst = slot["buf"][at : at + len(rows) * sw].view(np.int16).reshape(len(rows), 2 * sw)
+    dst[:] = slot["silk"][rows]
+    return at, at + len(rows) * sw
 
 
 def check_plan_iy_span(slot: dict) -> np.ndarray:

@@ -1,8 +1,8 @@
 """The port's own plane A against the reference's, on the CPU.
 
-opus_tpu_torch.native holds byte-identical copies of the CELT engine's
-sources and a copy of the ctypes wrapper the port drives, so that the
-port imports nothing of opus_tpu.  Both engines load into this process
+opus_tpu_torch.native holds byte-identical copies of the CELT, SILK and
+Opus engines' sources and a copy of the ctypes wrapper the port drives, so
+that the port imports nothing of opus_tpu.  Both engines load into this process
 (each library is its own RTLD_LOCAL handle, so their statics are
 separate); on the same packets they must fill their slots word for word
 and end on the same final ranges.
@@ -23,7 +23,8 @@ FRAME = 960
 
 
 @pytest.mark.parametrize("name", ["celt_frontend.cpp", "celt_tables.h", "ec.h",
-                                  "celt_encoder.inc"])
+                                  "celt_encoder.inc", "silk_frontend.cpp", "silk_tables.h",
+                                  "silk_encoder.inc", "opus_frontend.cpp"])
 def test_sources_are_byte_identical(name):
     port = (ROOT / "opus_tpu_torch" / "native" / name).read_bytes()
     assert port == (ROOT / "opus_tpu" / "native" / name).read_bytes()
@@ -121,3 +122,94 @@ def test_plan_constants_and_span_guard_match_the_reference():
     for guard in (port_fe.check_plan_iy_span, ref_fe.check_plan_iy_span):
         with pytest.raises(OverflowError):
             guard(over)
+
+
+def _mixed_steps(B, NF):
+    """Whole Opus packets, stream i of kind i % 3 (CELT 96 kbps stereo,
+    SILK WB 60 B mono, hybrid SWB 160 B mono) from the port's own native
+    encoders, as chip_smoke.py makes them, with losses on every kind."""
+    rng = np.random.default_rng(4)
+    t = np.arange(FRAME * NF) / 48000.0
+    voice = (0.35 * np.sign(np.sin(2 * np.pi * 140 * t))[None] * (1 + 0.2 * np.arange(B))[:, None]
+             / (1 + 0.2 * B) + 0.02 * rng.standard_normal((B, t.size))).astype(np.float32)
+    silk = port_fe.NativeSilkEncoderBatch(B, 16)
+    hyb = port_fe.NativeHybridEncoderBatch(B)
+    celt = _payloads(B, NF)
+    steps = []
+    for f in range(NF):
+        v = voice[:, f * FRAME : (f + 1) * FRAME]
+        s_pay, s_len = silk.encode_batch(np.round(v[:, ::3] * 32767).astype(np.int16), 60)
+        h_pay, h_len = hyb.encode_batch(v, 160)
+        row = []
+        for i in range(B):
+            kind = i % 3
+            if (f, i) in {(2, 0), (3, 1), (3, 2), (4, 4)}:
+                row.append(None)
+            elif kind == 0:
+                row.append(bytes([31 << 3 | 4]) + celt[f][i])  # CELT FB 20 ms stereo
+            elif kind == 1:
+                row.append(bytes([9 << 3]) + bytes(s_pay[i, : s_len[i]]))  # SILK WB 20 ms
+            else:
+                row.append(bytes([13 << 3]) + bytes(h_pay[i, : h_len[i]]))  # hybrid SWB 20 ms
+        steps.append(row)
+    return steps
+
+
+@pytest.mark.parametrize("transfer", ["plan", "p10"])
+@pytest.mark.parametrize("silk", ["internal", "pcm48"])
+def test_mixed_plane_a_fills_slots_like_the_reference(transfer, silk):
+    """The mixed decode (NativeOpusFrontEnd) against the reference's
+    BatchedOpusDecoder plane A on the same packets: every slot word, the
+    SILK staging, the row map and the final ranges equal."""
+    from opus_tpu.batch.opus_pipeline import BatchedOpusDecoder as RefDecoder
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    B, NF = 6, 5
+    ref = RefDecoder(B, 2, transfer=transfer, silk_transfer=silk)
+    port = BatchedOpusDecoder(B, 2, transfer=transfer, silk_transfer=silk, device="cpu")
+    if transfer == "plan":
+        want = ref_fe.alloc_plan_slots(B, 1, 512, silk_words=port._silk_shape(FRAME)[1])[0]
+        got = port._alloc_plan_slots(FRAME, 1)[0][0]
+    else:
+        want = ref._alloc_mixed_slots(FRAME, 1)[0]
+        got = port._alloc_packed_slots(FRAME, 1)[0][0]
+    want["frame48"] = FRAME
+    for packets in _mixed_steps(B, NF):
+        if transfer == "plan":
+            ref._plane_a_plan(packets, want)
+            port._plane_a_plan(packets, got)
+            for key in ("header", "ble", "meta", "gains", "bands", "silk", "silk_rows"):
+                assert np.array_equal(got[key], want[key]), key
+            assert got["used_words"] == want["used_words"]
+            assert np.array_equal(got["buf"][: got["used_words"]],
+                                  want["buf"][: want["used_words"]])
+        else:
+            ref._plane_a_packed(packets, want)
+            port._plane_a_packed(packets, got)
+            assert np.array_equal(got["buf"], want["buf"])
+        assert np.array_equal(port.native.trans, ref._trans)
+    assert port.final_ranges() == ref.final_ranges()
+
+
+def test_silk_and_hybrid_encoders_match_the_reference():
+    """The port's bindings of the native SILK, voice and hybrid encoders
+    give the reference's bytes."""
+    B = 3
+    rng = np.random.default_rng(6)
+    x16 = (rng.standard_normal((B, 320)) * 3000).astype(np.int16)
+    x48 = (0.2 * rng.standard_normal((B, FRAME))).astype(np.float32)
+    for got, want in (
+        (port_fe.NativeSilkEncoderBatch(B, 16).encode_batch(x16, 60),
+         ref_fe.NativeSilkEncoderBatch(B, 16).encode_batch(x16, 60)),
+        (port_fe.NativeHybridEncoderBatch(B).encode_batch(x48, 160),
+         ref_fe.NativeHybridEncoderBatch(B).encode_batch(x48, 160)),
+    ):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    voice, ref_voice = port_fe.NativeVoiceEncoder(16, 48000), ref_fe.NativeVoiceEncoder(16, 48000)
+    hyb, ref_hyb = port_fe.NativeHybridEncoder(), ref_fe.NativeHybridEncoder()
+    for i in range(3):
+        pcm16 = (x48[i] * 32767).astype(np.int16)
+        assert voice.encode(pcm16, 60) == ref_voice.encode(pcm16, 60)
+        assert hyb.encode(x48[i], 160) == ref_hyb.encode(x48[i], 160)
+    assert voice.final_range == ref_voice.final_range
+    assert hyb.final_range == ref_hyb.final_range

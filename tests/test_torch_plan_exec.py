@@ -202,3 +202,60 @@ def test_lcg_jump_table_matches_double_and_add():
     for t in range(40):
         assert (int(tbl[0, t]) * seed + int(tbl[1, t])) & 0xFFFFFFFF == s
         s = lcg(s)
+
+
+def _mixed_streams(nframes):
+    """Hybrid SWB at 32 and 64 kbps (start band 17; 32 kbps folds heavily
+    in the high bands: the e[17]-relative fold offsets and the band-18
+    fold duplication, reference bands.py:605) and narrowband CELT at 48
+    kbps (end band 13), as whole Opus packets."""
+    rng = np.random.default_rng(17)
+    t = np.arange(F * nframes) / 48000.0
+    ph = np.cumsum(2 * np.pi * (130 + 25 * np.sin(2 * np.pi * 2.5 * t)) / 48000.0)
+    voice = 0.35 * np.sign(np.sin(ph)) + 0.02 * rng.standard_normal(t.size)
+    music = 0.4 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1763 * t)
+    out = []
+    for sig, mode, kbps, bw in ((voice, oracle.MODE_HYBRID, 32, None),
+                                (voice, oracle.MODE_HYBRID, 64, None),
+                                (music, oracle.MODE_CELT_ONLY, 48, 1101)):
+        pcm = np.stack([sig, 0.7 * np.roll(sig, 13)], -1).astype(np.float32)
+        enc = oracle.Encoder(48000, 2)
+        enc.ctl(oracle.SET_FORCE_MODE, mode)
+        enc.ctl(oracle.SET_BITRATE, kbps * 1000)
+        if bw:
+            enc.ctl(oracle.SET_MAX_BANDWIDTH, bw)
+        out.append([enc.encode_float(pcm[i * F : (i + 1) * F].ravel(), F) for i in range(nframes)])
+    return out
+
+
+def test_executor_hybrid_and_narrowband_plans(jax_executor, port_executor):
+    """Plans of the mixed decode (native/frontend.py NativeOpusFrontEnd,
+    a mixed slot with the smap word) for hybrid streams (start band 17)
+    and narrowband CELT (end band 13), with a loss on each hybrid stream: the
+    port's executor equals the JAX executor within 1e-5 and the numpy
+    oracle within 1e-3."""
+    from opus_tpu.dsp.plan_exec import execute_plan_numpy
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    import jax.numpy as jnp
+
+    NF = 6
+    streams = _mixed_streams(NF)
+    dec = BatchedOpusDecoder(B, 2, transfer="plan", device="cpu")
+    slot = dec._alloc_plan_slots(F, 1)[0][0]
+    starts, ends = set(), set()
+    for fr in range(NF):
+        pkts = [streams[b][fr] for b in range(B)]
+        if fr in (2, 4):
+            pkts[fr // 2 - 1] = None
+        dec._plane_a_plan(pkts, slot)
+        starts |= set(slot["meta"][:, 4].tolist())
+        ends |= set(slot["meta"][:, 5].tolist())
+        got = _run_port(port_executor, slot)
+        want = np.asarray(jax_executor(*map(jnp.asarray, _args(slot))))
+        assert float(np.abs(got - want).max()) < JAX_TOL
+        xn = execute_plan_numpy(slot, 3)
+        for b in range(B):
+            c_ = int(slot["meta"][b, 3])
+            assert float(np.abs(got[b, :c_] - xn[b, :c_]).max()) < REF_TOL
+    assert 17 in starts and 0 in starts and 13 in ends

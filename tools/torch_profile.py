@@ -23,6 +23,13 @@ compact concealment) and step 6 (a whole-batch one), each through its
 concealing variant and through the clean variant on the same slot, with
 the difference in kernels per step (the launch budget of concealment).
 
+The mixed traffic (chip_smoke.py's: one stream in three each of CELT,
+SILK WB and hybrid SWB, the plan transfer with the internal SILK
+transfer) gets the same: a serve breakdown of mixed and mixed-loss (with
+the ToC parse apart from plane A), and a profile of the first mixed step
+and of the first mixed-loss step that conceals, with the device time of
+the SILK resampler's products (`_silk_resample`, under a profiler range).
+
 The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
 CUDA device; exits non-zero without one.
 """
@@ -41,10 +48,34 @@ sys.path.insert(0, str(ROOT))
 
 #: The symbols of the kernels in opus_tpu_torch/csrc/.
 KERNELS = ("postfilter_kernel", "rot_pass_kernel", "pitch_track_kernel", "lpc_synth_kernel")
+#: Profiler ranges put around functions of the port while profiling.
+RANGES = ("silk_resample",)
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _kernels(ka) -> list:
+    """The device events of a profile that are kernels (or copies): the
+    device-side spans of the profiler ranges are left out."""
+    return [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in RANGES]
+
+
+def _ranged(module, name: str, label: str) -> None:
+    """Run module.name under a profiler range called `label`."""
+    fn = getattr(module, name)
+
+    def run(*a, **k):
+        with torch.profiler.record_function(label):
+            return fn(*a, **k)
+
+    setattr(module, name, run)
+
+
+def _device_us(evt, total: bool = False) -> float:
+    """An event's own device time (or, with total, that of everything it
+    launched: a profiler range's kernels)."""
+    names = (("device_time_total", "cuda_time_total") if total
+             else ("self_device_time_total", "self_cuda_time_total"))
+    for name in names:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
@@ -68,7 +99,7 @@ def profile(name, step_fn, steps: int, where: str, out) -> float:
             step_fn()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    cuda = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = _kernels(ka)
     busy_ms = sum(_device_us(e) for e in cuda) / 1e3 / steps
     kernels = sum(e.count for e in cuda) / steps
     issue_ms = sorted(issue)[len(issue) // 2] * 1e3
@@ -79,6 +110,17 @@ def profile(name, step_fn, steps: int, where: str, out) -> float:
         print(f"  {name} kernel {sym}: device ms/step="
               f"{sum(_device_us(e) for e in hits) / 1e3 / steps} "
               f"launches/step={sum(e.count for e in hits) / steps} ({where})")
+    for rng in RANGES:
+        # The range's host event carries the device time of the kernels
+        # launched inside it; its device-side twin spans first to last
+        # kernel, host gaps included.
+        host = [e for e in ka if e.key == rng and e.device_type != torch.autograd.DeviceType.CUDA]
+        span = [e for e in ka if e.key == rng and e.device_type == torch.autograd.DeviceType.CUDA]
+        if host:
+            print(f"  {name} range {rng}: kernels' device ms/step="
+                  f"{sum(_device_us(e, total=True) for e in host) / 1e3 / steps} span ms/step="
+                  f"{sum(_device_us(e) for e in span) / 1e3 / steps} "
+                  f"calls/step={sum(e.count for e in host) / steps} ({where})")
     top = sorted(cuda, key=_device_us, reverse=True)[:12]
     for e in top:
         print(f"  {name} device {_device_us(e) / 1e3 / steps:.4f} ms/step x{e.count // steps} "
@@ -129,13 +171,100 @@ def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
         t0 = time.perf_counter()
         dec.serve(batches, cs.FRAME)
         wall_prof = time.perf_counter() - t0
-    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = _kernels(prof.key_averages())
     busy = sum(_device_us(e) for e in cuda) / 1e6
     print(f"serve {name or transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
           f"plane_A={timed_run['plane A'] / n * 1e3} "
           f"step_issue={timed_run['step issue'] / n * 1e3} "
           f"rest={rest / n * 1e3}; under the profiler: wall ms/step={wall_prof / n * 1e3} "
           f"device_busy={busy / n * 1e3} device_idle_share={1 - busy / wall_prof} ({where})")
+
+
+def mixed_breakdown(batches, where: str, name: str) -> None:
+    """serve_breakdown for the mixed plan loop (internal SILK): plane A,
+    the ToC parse, the step issue and the rest, and the device busy share."""
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    dec = BatchedOpusDecoder(cs.B, cs.C, transfer="plan", silk_transfer="internal",
+                             device=torch.device("cuda"))
+    dec.serve(batches)  # warm-up
+    spent = {"plane A": 0.0, "ToC parse": 0.0, "step issue": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    dec.native.decode_batch_plan_into = timed(dec.native.decode_batch_plan_into, "plane A")
+    dec._toc_arrays = timed(dec._toc_arrays, "ToC parse")
+    for key in list(dec._steps):
+        dec._steps[key] = timed(dec._steps[key], "step issue")
+    t0 = time.perf_counter()
+    dec.serve(batches)
+    wall = time.perf_counter() - t0
+    n = len(batches)
+    run = dict(spent)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dec.serve(batches)
+        wall_prof = time.perf_counter() - t0
+    cuda = _kernels(prof.key_averages())
+    busy = sum(_device_us(e) for e in cuda) / 1e6
+    print(f"serve {name} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
+          f"plane_A={run['plane A'] / n * 1e3} toc_parse={run['ToC parse'] / n * 1e3} "
+          f"step_issue={run['step issue'] / n * 1e3} "
+          f"rest={(wall - sum(run.values())) / n * 1e3}; under the profiler: wall ms/step="
+          f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} "
+          f"device_idle_share={1 - busy / wall_prof} fallbacks={dec.plan_fallbacks} ({where})")
+
+
+def mixed_steps(batches, lossy, steps: int, where: str, out) -> None:
+    """Profile the first mixed step, and the first mixed-loss step that
+    conceals through its concealing and its clean variant on one slot."""
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.dsp.synthesis import init_state
+    from opus_tpu_torch.native.frontend import pack_plan_silk
+
+    B, C, F = cs.B, cs.C, cs.FRAME
+    dev = torch.device("cuda")
+    for label, traffic in (("mixed", batches), ("mixed-loss", lossy)):
+        dec = BatchedOpusDecoder(B, C, transfer="plan", silk_transfer="internal", device=dev)
+        slot = dec._alloc_plan_slots(F, 1)[0][0]
+        for t, pk in enumerate(traffic):
+            dec._plane_a_plan(pk, slot)
+            lm, chunk, active, with_plc, rates = dec._step_picks(slot)
+            if label == "mixed" or with_plc is not False:
+                break
+        silk_at, words = pack_plan_silk(slot)
+        buf = slot["host"][:words].to(dev)
+        state = init_state(B, C, device=dev, silk_hist=True)
+        ring = torch.zeros(B, F, C, device=dev)
+        lpc = torch.zeros(B, C, 24, device=dev)
+        pitch = torch.full((B,), 15, dtype=torch.int32, device=dev)
+        cls = dec._plan_size_class(slot)
+        kw = dict(silk_at=silk_at, rates=rates)
+        clean = dec._mixed_plan_serving_step(lm, chunk, active, cls, False)
+        n_lost = int((slot["meta"][:, 14] & 1).sum())
+        name = (f"{label} step {t} ({int((slot['meta'][:, 4] == 17).sum())} hybrid, "
+                f"{len(slot['silk_rows'])} SILK rows, rates {rates}, {words} words, class {cls})")
+        k_clean = profile(name if label == "mixed" else f"{name} clean variant",
+                          lambda: clean(state, ring, buf, **kw), steps, where, out)
+        if label == "mixed-loss":
+            lossy_step = dec._mixed_plan_serving_step(lm, chunk, active, cls, with_plc)
+            k_loss = profile(f"{name} concealing {n_lost} (k={with_plc})",
+                             lambda: lossy_step(state, ring, buf, lpc, pitch, **kw),
+                             steps, where, out)
+            print(f"{label} step {t}: concealment adds {k_loss - k_clean} kernels per step "
+                  f"({k_loss} vs {k_clean}) ({where})")
 
 
 def main() -> int:
@@ -161,6 +290,13 @@ def main() -> int:
     serve_breakdown("p10", cs.with_losses(batches), where)
     serve_breakdown("plan", batches, where)
     serve_breakdown("plan", lossy, where, "plan-loss")
+    from opus_tpu_torch.dsp import synthesis
+
+    _ranged(synthesis, "_silk_resample", "silk_resample")
+    mixed = cs.make_mixed_payloads(batches)
+    mixed_lossy = cs.with_mixed_losses(mixed)
+    mixed_breakdown(mixed, where, "mixed")
+    mixed_breakdown(mixed_lossy, where, "mixed-loss")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with open(ROOT / "chiprun_out" / "torch_profile.txt", "w") as out:
         for transfer in ("p10", "plan"):
@@ -210,6 +346,7 @@ def main() -> int:
                               lambda: clean_step(state, ring, buf), args.steps, where, out)
             print(f"plan-loss step {t} ({kind}): concealment adds {k_loss - k_clean} kernels "
                   f"per step ({k_loss} vs {k_clean}; budget 1000) ({where})")
+        mixed_steps(mixed, mixed_lossy, args.steps, where, out)
     return 0
 
 
