@@ -5,7 +5,11 @@
 Builds plane A (g++: the CELT, SILK and Opus engines) and the CUDA
 kernels (nvcc, sm_90a; post-filter, spreading rotation and the two scans
 of the loss concealment) from the sources in the checkout, in parallel,
-and holds each kernel to its plain torch version at the serving shapes.
+and holds each kernel to its plain torch version at the serving shapes
+(the scans also on ties at pitch_track's lane edges, y contiguous and at
+stride 2, and on every chunk geometry of lpc_synth: 1 to 1,081 samples
+at 1 to 2,048 rows, poles at radius 0.995 and 0.999, a zero LPC that
+must pass ext through exactly).
 Then it serves 1024 stereo 48 kHz CELT streams (20 ms frames at 96 kbps,
 payloads from the port's native encoder) through three main paths of
 BatchedCeltDecoder:
@@ -87,10 +91,16 @@ ROT_LENGTHS = [1, 1, 2, 3, 5, 8, 21, 44, 87, 176]
 CPU_PCM_TOL = 1e-4  # card run vs the port's CPU run, streams 0-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-# The concealment's scans are bound by their dependent chain: cycles of
-# arithmetic latency (4 cycles for a float add, multiply-add or max) at
-# the H100 SXM's top boost clock.
+# pitch_track is bound by its dependent chain: cycles of arithmetic
+# latency (4 cycles for a float add, multiply-add or max) at the H100
+# SXM's top boost clock.  lpc_synth's chunked form is not bound by the
+# sequential walk's chain (kept in its bound_note).
 CLOCK_HZ = 1.98e9
+SYNTH_ELS = [1, 23, 24, 25, 33, 300, 1080, 1081]  # lpc_synth chunk geometries
+SYNTH_ROWS = [1, 31, 256, 2048]
+# (length, n_lags): lengths not a multiple of 32; 155 and 310 the coarse
+# and fine searches' lags
+PITCH_GEOMETRY = [(45, 1), (77, 31), (332, 155), (664, 310)]
 PLAN_LOSS_P, PLAN_LOSS_SEED = 0.05, 7
 PLC_PCM_TOL = 1e-3  # card vs CPU once a stream has lost a frame (tests/test_torch_plc.py)
 MIXED_P10_STEPS = 6  # mixed-p10 serves the first 6 steps, to keep within the time limit
@@ -363,15 +373,43 @@ def pitch_inputs(seed: int, rows: int, length: int, n_lags: int, dev):
     return [torch.tensor(a, device=dev) for a in (xc, y)]
 
 
+def pitch_edge_inputs(seed: int, rows: int, length: int, n_lags: int, dev):
+    """pitch_track inputs with ties at the kernel's lane edges (as
+    tests/test_torch_plc.py makes them): rows 0-4 have y = 0 (syy stays
+    1): ties at lags 31/32, at 63/64, at all four, every lag equal, lags
+    31/32 a float apart; row 5's energy falls to the clamp at 1; row 6
+    has its best at lag 32; the rest are random."""
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((rows, length + n_lags)) * 3e4).astype(np.float32)
+    xc = (rng.standard_normal((rows, n_lags)) * 1e12).astype(np.float32)
+    y[:5] = 0.0
+    xc[:5] = -1.0
+    for r, lags, v in ((0, [31, 32], 5e12), (1, [63, 64], 5e12), (2, [31, 32, 63, 64], 7e12),
+                       (4, [31], 6e12),
+                       (4, [32], np.nextafter(np.float32(6e12), np.float32(np.inf))),
+                       (6, [32], 9e13)):
+        xc[r, [i for i in lags if i < n_lags]] = v
+    xc[3] = 4e12
+    y[5, length:] = 0.0
+    xc[5] = np.abs(xc[5])
+    return [torch.tensor(a, device=dev) for a in (xc, y)]
+
+
 def synth_inputs(seed: int, rows: int, el: int, dev):
     """lpc_synth inputs: ext ~ N(0, 1) [rows, el], a small random LPC and
-    history; row 0 has a pole pair at radius 0.995 (near instability)."""
+    history, with the special rows first (as many as fit): a pole pair at
+    radius 0.995 (near instability), one at 0.999, a zero LPC (out must
+    equal ext exactly: check_synth), a history of 1e3 with zero ext."""
     rng = np.random.default_rng(seed)
     lpc = (rng.standard_normal((rows, 24)) * 0.03).astype(np.float32)
-    lpc[0] = 0.0
-    lpc[0, :2] = [-2 * 0.995 * np.cos(0.2), 0.995 ** 2]
     ext = rng.standard_normal((rows, el)).astype(np.float32)
     hist0 = rng.standard_normal((rows, 24)).astype(np.float32)
+    lpc[:3] = 0.0  # rows 0-1 get a pole pair, row 2 stays a zero LPC
+    for r, radius in enumerate([0.995, 0.999][:rows]):
+        lpc[r, :2] = [-2 * radius * np.cos(0.2), radius ** 2]
+    if rows > 3:
+        ext[3] = 0.0
+        hist0[3] *= 1e3
     return [torch.tensor(a, device=dev) for a in (ext, lpc, hist0)]
 
 
@@ -403,19 +441,25 @@ def check_synth(ext, lpc, hist0, label: str) -> float:
     rel_k = float(((got.double() - want).abs().amax(dim=1) / peak).max())
     rel_p = float(((plain.double() - want).abs().amax(dim=1) / peak).max())
     err = float((got.double() - want).abs().max())
+    zero_lpc = (lpc == 0).all(dim=1)
+    passed = bool(torch.equal(got[zero_lpc], ext[zero_lpc]))
     print(f"kernel lpc_synth {label} rows={ext.shape[0]} el={ext.shape[1]}: vs float64 "
-          f"max_abs_err={err} max_err_of_row_peak={rel_k}; f32 plain max_err_of_row_peak={rel_p}")
-    if not (bool(torch.isfinite(got).all()) and rel_k < LPC_PEAK_TOL and rel_p < LPC_PEAK_TOL):
+          f"max_abs_err={err} max_err_of_row_peak={rel_k}; f32 plain max_err_of_row_peak={rel_p}; "
+          f"{int(zero_lpc.sum())} zero-LPC rows equal to ext: {passed}")
+    if not (bool(torch.isfinite(got).all()) and rel_k < LPC_PEAK_TOL and rel_p < LPC_PEAK_TOL
+            and passed):
         raise AssertionError(f"lpc_synth off the float64 run ({label}): kernel {rel_k}, "
-                             f"plain {rel_p}")
+                             f"plain {rel_p}, zero-LPC rows passed through: {passed}")
     return err
 
 
 def pitch_times(xc, y, length: int, n_lags: int) -> dict:
     """ms of the wrapper, the bare kernel launch and the plain version,
     with the bound: bytes (xcorr and y[:length + n_lags] read, two index
-    rows written) or the chain (4 cycles a sample of the initial energy
-    sum, then 8 a lag: an add and a max on the running energy)."""
+    rows written) or the chain that stays serial: the initial energy as
+    32 lane sums in order and a 5-level tree (4 cycles an add), then 8
+    cycles a lag (an add and a max on the running energy).  The sequential
+    sum's chain (4 cycles a sample, then 8 a lag) is kept as chain_ms_serial_sum."""
     from opus_tpu_torch.dsp import plc_scan
 
     R = xc.shape[0]
@@ -424,43 +468,63 @@ def pitch_times(xc, y, length: int, n_lags: int) -> dict:
     prepared = [plc_scan._pitch_kernel_args(a[0], a[1], length, n_lags, a[2], a[3])
                 for a in sets]
     nbytes = R * (n_lags + length + n_lags + 2) * 4
-    bound, by = chain_bound_ms(nbytes, 4 * length + 8 * n_lags)
+    bound, by = chain_bound_ms(nbytes, 4 * (-(-length // 32) + 5) + 8 * n_lags)
     return {"ms": best_ms(cycled(lambda a: plc_scan.pitch_track(a[0], a[1], length, n_lags),
                                  sets), 40),
             "kernel_ms": best_ms(bare("opus_pitch_track", prepared), 40),
             "plain_ms": cuda_ms(lambda: plc_scan._pitch_track_ref(xc, y, length, n_lags), 2),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by,
+            "chain_ms_serial_sum": (4 * length + 8 * n_lags) / CLOCK_HZ * 1e3}
 
 
 def synth_times(ext, lpc, hist0) -> dict:
     """ms of the wrapper, the bare kernel launch and the plain version,
-    with the bound: bytes (ext, lpc, hist0 read, out written) or the chain
-    (one multiply-add, 4 cycles, a sample from one output to the next)."""
+    with the bound: bytes (ext, lpc, hist0 read, out written) or the
+    arithmetic of the sequential recurrence (24 multiply-adds, 48 flops, a
+    sample) at the float32 peak.  The chunked kernel is not bound by the
+    sequential walk's chain (one multiply-add, 4 cycles, a sample), kept
+    as chain_ms."""
     from opus_tpu_torch.dsp import plc_scan
 
     sets = [[a.clone() for a in (ext, lpc, hist0)] + [torch.empty_like(ext)] for _ in range(3)]
     prepared = [plc_scan._synth_kernel_args(*a) for a in sets]
     R, el = ext.shape
-    bound, by = chain_bound_ms(R * (2 * el + 48) * 4, 4 * el)
+    bound, by = bound_ms(R * (2 * el + 48) * 4, 48 * R * el)
     return {"ms": best_ms(cycled(lambda a: plc_scan.lpc_synth(*a[:3]), sets), 40),
             "kernel_ms": best_ms(bare("opus_lpc_synth", prepared), 40),
             "plain_ms": cuda_ms(lambda: plc_scan._lpc_synth_ref(ext, lpc, hist0), 2),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by, "chain_ms": 4 * el / CLOCK_HZ * 1e3}
+
+
+def stride2(y):
+    """A stride-2 view holding y, as the coarse search passes it."""
+    y2 = torch.zeros(y.shape[0], 2 * y.shape[1], device=y.device)
+    y2[:, ::2] = y
+    return y2[:, ::2]
 
 
 def plc_phase(dev, where: str) -> dict:
     """The concealment's scan kernels vs their plain versions on synthetic
     inputs at the whole-batch shapes (B=1024: pitch rows 1024, synthesis
-    rows 2048 of 1080 samples), coarse and fine searches; times there."""
+    rows 2048 of 1080 samples), coarse and fine searches; on ties at the
+    kernel's lane edges (PITCH_GEOMETRY, y contiguous and at stride 2); on
+    every chunk geometry of lpc_synth (SYNTH_ELS x SYNTH_ROWS); times at
+    the whole-batch shapes."""
     fine = pitch_inputs(41, B, 664, 310, dev)
     check_pitch(*fine, 664, 310, "synthetic fine")
     coarse = pitch_inputs(42, B, 332, 155, dev)
-    # the coarse search reads y at stride 2: give the kernel such a view
-    y2 = torch.zeros(B, 2 * coarse[1].shape[1], device=dev)
-    y2[:, ::2] = coarse[1]
-    check_pitch(coarse[0], y2[:, ::2], 332, 155, "synthetic coarse, stride-2 y")
+    check_pitch(coarse[0], stride2(coarse[1]), 332, 155, "synthetic coarse, stride-2 y")
+    for length, n_lags in PITCH_GEOMETRY:
+        xc, y = pitch_edge_inputs(n_lags, 300, length, n_lags, dev)
+        check_pitch(xc, y, length, n_lags, "lane-edge ties")
+        check_pitch(xc, stride2(y), length, n_lags, "lane-edge ties, stride-2 y")
+    err = 0.0
+    for el in SYNTH_ELS:
+        for rows in SYNTH_ROWS:
+            args = synth_inputs(rows + el, rows, el, dev)
+            err = max(err, check_synth(*args, "chunk geometry"))
     syn = synth_inputs(43, B * C, 1080, dev)
-    err = check_synth(*syn, "synthetic")
+    err = max(err, check_synth(*syn, "synthetic"))
     t_p = pitch_times(*fine, 664, 310)
     t_s = synth_times(*syn)
     for name, t, shape in (("pitch_track", t_p, f"rows={B} fine"),
@@ -1176,7 +1240,7 @@ def main() -> int:
     # variant: 128 pitch rows, fine search; 256 synthesis rows).
     plc_real = paths["plan-loss"]["real"]["plc"]
     k = min(r for r, _ in plc_real["pitch"])
-    pt_t = plc_real["pitch"][k, 310]
+    pt_t, pt_c = plc_real["pitch"][k, 310], plc_real["pitch"][k, 155]
     ls_t = plc_real["synth"][min(plc_real["synth"])]
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
@@ -1205,10 +1269,16 @@ def main() -> int:
          "max_abs_err": 0, "ms": pt_t["ms"], "plain_ms": pt_t["plain_ms"],
          "bound_ms": pt_t["bound_ms"], "bound_by": pt_t["bound_by"], "library_ms": None,
          "shape": f"rows={k} length=664 n_lags=310 (plan-loss step, fine search)",
-         "bound_note": "dependent chain: 4 cycles x 664 + 8 cycles x 310 at 1.98 GHz",
+         "bound_note": "dependent chain at 1.98 GHz: 4 cycles x (21 lane samples + 5 tree "
+                       "levels) + 8 cycles x 310 lags; with the energy summed in order "
+                       f"(4 cycles x 664 + 8 x 310) it was {pt_t['chain_ms_serial_sum']} ms",
          "kernel_ms": pt_t["kernel_ms"], "ms_syn_rows_1024": plc["pitch"]["ms"],
          "kernel_ms_syn_rows_1024": plc["pitch"]["kernel_ms"],
-         "plain_ms_syn_rows_1024": plc["pitch"]["plain_ms"]},
+         "plain_ms_syn_rows_1024": plc["pitch"]["plain_ms"],
+         "coarse_shape": f"rows={k} length=332 n_lags=155, y at stride 2 (plan-loss step)",
+         "ms_coarse": pt_c["ms"], "kernel_ms_coarse": pt_c["kernel_ms"],
+         "plain_ms_coarse": pt_c["plain_ms"], "bound_ms_coarse": pt_c["bound_ms"],
+         "bound_by_coarse": pt_c["bound_by"]},
         {"name": "lpc_synth", "route": "cuda", "source": "opus_tpu_torch/csrc/plc.cu",
          "replaces": "opus_tpu/dsp/plc_exec.py:298", **launches("lpc_synth"),
          "max_abs_err": max(plc["synth_err"], plc_real["synth_err"]),
@@ -1216,7 +1286,10 @@ def main() -> int:
          "ms": ls_t["ms"], "plain_ms": ls_t["plain_ms"],
          "bound_ms": ls_t["bound_ms"], "bound_by": ls_t["bound_by"], "library_ms": None,
          "shape": f"rows={min(plc_real['synth'])} el=1080 (plan-loss step)",
-         "bound_note": "dependent chain: 4 cycles x 1080 samples at 1.98 GHz",
+         "bound_note": "48 flops a sample of the sequential recurrence at 67 TFLOP/s fp32, "
+                       "or the bytes; the sequential walk's dependent chain (4 cycles x 1080 "
+                       f"samples at 1.98 GHz, {ls_t['chain_ms']} ms) does not bound the "
+                       "chunked kernel",
          "kernel_ms": ls_t["kernel_ms"], "ms_syn_rows_2048": plc["synth"]["ms"],
          "kernel_ms_syn_rows_2048": plc["synth"]["kernel_ms"],
          "plain_ms_syn_rows_2048": plc["synth"]["plain_ms"]},

@@ -15,11 +15,17 @@ kernel does not build or launch.  On a CPU tensor it runs the plain
 version (`_pitch_track_ref`, `_lpc_synth_ref`), which defines what the
 kernel computes.
 
-`pitch_track` is exact: its plain version sums the initial energy
-sequentially from 1 and rounds every product before it is compared, as
-the kernel does, so the two agree index for index.  It differs from the
-reference's `_find_best_pitch` only in that initial sum (the reference
-sums in XLA's order), so near-ties may break differently there.
+`pitch_track` is exact: its plain version sums the initial energy in the
+kernel's order (32 lane partial sums, each in order, then a fixed
+butterfly, then 1 added) and rounds every product before it is compared,
+as the kernel does, so the two agree index for index.  It differs from
+the reference's `_find_best_pitch` only in that initial sum (the
+reference sums in XLA's order), so near-ties may break differently there.
+
+`lpc_synth`'s kernel filters a row in chunks and carries the history
+across them, which rounds differently from the sequential walk; its
+plain version stays the sequential definition, and the kernel is held to
+it through a float64 run (within 1e-3 of each row's peak).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import torch
 
 LPC_ORDER = 24
+_LANES = 32  # pitch_track's initial energy: the kernel's warp width
 
 
 def _pitch_track_ref(xcorr, y, length: int, n_lags: int):
@@ -34,14 +41,23 @@ def _pitch_track_ref(xcorr, y, length: int, n_lags: int):
 
     xcorr [R, >= n_lags] f32, y [R, >= length + n_lags] f32 -> (bp0, bp1)
     int32 [R]: the best and second-best lag.  syy starts at 1 + the
-    energy of y[:length], summed in order, and moves by y[i+length]^2 -
-    y[i]^2 after lag i, clamped at 1."""
+    energy of y[:length] and moves by y[i+length]^2 - y[i]^2 after lag i,
+    clamped at 1.  The energy is summed as the kernel's warp sums it:
+    partial l adds y[t]^2 for t = l, l + 32, ... in order, then halves
+    of the 32 partials are added (16, 8, 4, 2, 1), then 1."""
     R = xcorr.shape[0]
     dev = xcorr.device
     y2 = y * y
-    syy = torch.ones(R, dtype=torch.float32, device=dev)
-    for t in range(length):
-        syy = syy + y2[:, t]
+    head = y2[:, :length]
+    head = torch.cat([head, head.new_zeros(R, -length % _LANES)], dim=1)
+    part = torch.zeros(R, _LANES, dtype=torch.float32, device=dev)
+    for c in range(head.shape[1] // _LANES):
+        part = part + head[:, c * _LANES : (c + 1) * _LANES]
+    k = _LANES // 2
+    while k:
+        part = part[:, :k] + part[:, k : 2 * k]
+        k //= 2
+    syy = 1.0 + part[:, 0]
     deltas = y2[:, length : length + n_lags] - y2[:, :n_lags]
     bn0 = torch.full((R,), -1.0, device=dev)
     bd0 = torch.zeros(R, device=dev)

@@ -18,9 +18,12 @@ compact conceal are exact: equal indices, and compact equal to full bit
 for bit on the CPU.
 
 The kernels (`pitch_track`, `lpc_synth`) are CUDA only; they are held to
-their plain versions in the cases marked `cuda`, which skip here.  jax
-and the reference are imported inside the tests that use them, so that
-the `cuda` cases run where neither is installed.
+their plain versions in the cases marked `cuda`, which skip here.  On the
+CPU, a numpy model of `lpc_synth`'s chunked recurrence (the kernel's chunk
+geometry and precisions) is held to a float64 run, and the plain tracking
+to the reference's on ties at the kernel's lane edges.  jax and the
+reference are imported inside the tests that use them, so that the
+`cuda` cases run where neither is installed.
 """
 
 import numpy as np
@@ -38,6 +41,11 @@ from opus_tpu_torch.dsp.plc_scan import (
 FRAME = 960
 OUT_REL_TOL = 2e-3
 LPC_ABS_TOL = 2e-2
+LPC_PEAK_TOL = 1e-3  # lpc_synth vs a float64 run, of each row's peak
+SYNTH_ELS = [1, 23, 24, 25, 33, 300, 1080, 1081]
+#: (length, n_lags): lengths not a multiple of 32; 155 and 310 the
+#: coarse and fine searches' lags
+PITCH_GEOMETRY = [(45, 1), (77, 31), (332, 155), (664, 310)]
 
 
 def _jax():
@@ -260,6 +268,134 @@ def test_lpc_synth_ref_matches_reference_scan(memories):
     assert float(np.abs(got - want).max()) < 1e-6 * np.abs(want).max()
 
 
+def _synth_rows(rows: int, el: int, seed: int):
+    """lpc_synth inputs: ext ~ N(0, 1), a small random LPC and history,
+    with the special rows first (as many as fit): a pole pair at radius
+    0.999, a zero LPC (out must equal ext), a history of 1e3 with zero
+    ext, a pole pair at radius 0.995."""
+    rng = np.random.default_rng(seed)
+    lpc = (rng.standard_normal((rows, 24)) * 0.03).astype(np.float32)
+    ext = rng.standard_normal((rows, el)).astype(np.float32)
+    hist0 = rng.standard_normal((rows, 24)).astype(np.float32)
+    special = [("pole", 0.999), ("zero lpc", None), ("history", None), ("pole", 0.995)]
+    for r, (kind, radius) in enumerate(special[:rows]):
+        if kind == "pole":
+            lpc[r] = 0.0
+            lpc[r, :2] = [-2 * radius * np.cos(0.2), radius * radius]
+        elif kind == "zero lpc":
+            lpc[r] = 0.0
+        else:
+            ext[r] = 0.0
+            hist0[r] *= 1e3
+    return ext, lpc, hist0
+
+
+def _synth_f64(ext, lpc, hist0):
+    """The recurrence in float64 numpy (the yardstick)."""
+    h = hist0.astype(np.float64)
+    a = lpc.astype(np.float64)
+    out = np.zeros(ext.shape)
+    for t in range(ext.shape[1]):
+        out[:, t] = ext[:, t] - np.sum(a * h, axis=1)
+        h = np.concatenate([out[:, t : t + 1], h[:, :-1]], axis=1)
+    return out
+
+
+def _synth_chunked_model(ext, lpc, hist0):
+    """numpy model of csrc/plc.cu's lpc_synth: one chunk a lane (at most
+    32, none but the last below 24 samples), z in float32 from a zero
+    history (chunk 0 from hist0), H (the responses to a unit history in
+    each tap) by the kernel's row recursion H[0][j] = -a[j], H[t][j] =
+    H[t-1][j+1] - a[j] H[t-1][0] in float64 stored as float32, then the
+    carry s_{c+1} = tail24(z_c) + M s_c and the fix-up out = z + H s_c in
+    float32."""
+    R, el = ext.shape
+    want = min(32, max(1, el // 24))
+    L = -(-el // want)
+    count = -(-el // L)
+    assert count <= want and (count == 1 or L >= 24) and (el >= 48 or count == 1)
+
+    def run(x, h):  # float32, from the history h (h[:, j]: the output 1 + j back)
+        out = np.zeros(x.shape, np.float32)
+        for t in range(x.shape[1]):
+            out[:, t] = x[:, t] - np.sum(lpc * h, axis=1)
+            h = np.concatenate([out[:, t : t + 1], h[:, :-1]], axis=1)
+        return out
+
+    zero = np.zeros((R, 24), np.float32)
+    z = [run(ext[:, c * L : (c + 1) * L], hist0 if c == 0 else zero) for c in range(count)]
+    if count == 1:
+        return z[0]
+    a = lpc.astype(np.float64)
+    H = np.zeros((R, L, 24))
+    H[:, 0] = -a
+    for t in range(1, L):
+        H[:, t, :23] = H[:, t - 1, 1:] - a[:, :23] * H[:, t - 1, :1]
+        H[:, t, 23] = -a[:, 23] * H[:, t - 1, 0]
+    H = H.astype(np.float32)
+    M = H[:, ::-1][:, :24]  # M[r, j] = H[r, L - 1 - j]
+    s = z[0][:, ::-1][:, :24]
+    out = [z[0]]
+    for c in range(1, count):
+        out.append(z[c] + np.einsum("rtk,rk->rt", H[:, : z[c].shape[1]], s))
+        if c + 1 < count:  # the last chunk may be shorter than 24
+            s = z[c][:, ::-1][:, :24] + np.einsum("rjk,rk->rj", M, s)
+    return np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("el", SYNTH_ELS + [47, 48, 73])
+def test_chunked_synthesis_model_matches_float64(el):
+    """The kernel's chunked form, modelled in numpy, within 1e-3 of each
+    row's peak of a float64 run, the 0.999 pole pair included; a zero LPC
+    passes ext through exactly."""
+    ext, lpc, hist0 = _synth_rows(8, el, el)
+    want = _synth_f64(ext, lpc, hist0)
+    got = _synth_chunked_model(ext, lpc, hist0)
+    peak = np.abs(want).max(axis=1)
+    assert (np.abs(got - want).max(axis=1) <= LPC_PEAK_TOL * peak).all()
+    np.testing.assert_array_equal(got[1], ext[1])
+
+
+def _edge_pitch_rows(length: int, n_lags: int, rows: int, seed: int):
+    """pitch_track inputs with ties at the kernel's lane edges: rows 0-4
+    have y = 0 (syy stays 1, so equal correlations tie exactly): ties at
+    lags 31/32, at 63/64, at all four, every lag equal, and lags 31/32 a
+    float apart; row 5's energy falls to the clamp at 1 (y zero beyond
+    `length`); row 6 has its best at lag 32; the rest are random."""
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((rows, length + n_lags)) * 3e4).astype(np.float32)
+    xc = (rng.standard_normal((rows, n_lags)) * 1e12).astype(np.float32)
+    y[:5] = 0.0
+    xc[:5] = -1.0
+
+    def put(r, lags, v):
+        lags = [i for i in lags if i < n_lags]
+        xc[r, lags] = v
+
+    put(0, [31, 32], 5e12)
+    put(1, [63, 64], 5e12)
+    put(2, [31, 32, 63, 64], 7e12)
+    xc[3] = 4e12
+    put(4, [31], 6e12)
+    put(4, [32], np.nextafter(np.float32(6e12), np.float32(np.inf)))
+    y[5, length:] = 0.0
+    xc[5] = np.abs(xc[5])
+    put(6, [32], 9e13)
+    return xc, y
+
+
+@pytest.mark.parametrize("length,n_lags", PITCH_GEOMETRY)
+def test_pitch_track_ref_lane_edge_ties_match_find_best_pitch(length, n_lags):
+    """The plain tracking (the kernel's sum order) against the reference's
+    _find_best_pitch on the lane-edge tie rows: equal indices."""
+    jax, jnp, J = _jax()
+    xc, y = _edge_pitch_rows(length, n_lags, 12, n_lags)
+    want = J._find_best_pitch(jnp.asarray(xc), jnp.asarray(y), length, n_lags)
+    got = _pitch_track_ref(torch.tensor(xc), torch.tensor(y), length, n_lags)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
 def test_wrappers_refuse_bad_inputs():
     x = torch.zeros(4, 40)
     y = torch.zeros(4, 100)
@@ -344,3 +480,42 @@ def test_plc_wrappers_issue_one_launch_on_card(cuda_device):
         device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         assert sum(e.count for e in device) == 1 and sym in device[0].key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,n_lags", PITCH_GEOMETRY)
+def test_pitch_track_kernel_lane_edges_on_card(length, n_lags, cuda_device):
+    """Ties at lane edges, the clamp and random rows (300 rows), y
+    contiguous and as a stride-2 view: equal to the plain version index
+    for index."""
+    xc, y = (torch.tensor(a, device=cuda_device)
+             for a in _edge_pitch_rows(length, n_lags, 300, n_lags))
+    y2 = torch.zeros(y.shape[0], 2 * y.shape[1], device=cuda_device)
+    y2[:, ::2] = y
+    for yy in (y, y2[:, ::2]):
+        got = pitch_track(xc, yy, length, n_lags)
+        want = _pitch_track_ref(xc, yy, length, n_lags)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (yy.stride(), (a != b).nonzero()[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("el", SYNTH_ELS)
+def test_lpc_synth_kernel_geometry_on_card(el, cuda_device):
+    """Every chunk geometry (one chunk below 48 samples, a short last
+    chunk, 32 chunks) at 1, 31, 256 and 2,048 rows: kernel and plain f32
+    within 1e-3 of each row's peak of a float64 run, the 0.999 pole pair
+    included; a zero LPC passes ext through exactly."""
+    for rows in (1, 31, 256, 2048):
+        t = [torch.tensor(a, device=cuda_device) for a in _synth_rows(rows, el, rows + el)]
+        want = _lpc_synth_ref(*(a.double() for a in t))
+        got = lpc_synth(*t)
+        plain = _lpc_synth_ref(*t)
+        torch.cuda.synchronize()
+        peak = want.abs().amax(dim=1)
+        for name, out in (("kernel", got), ("plain", plain)):
+            err = (out.double() - want).abs().amax(dim=1)
+            assert bool((err <= LPC_PEAK_TOL * peak).all()), (name, rows, float((err / peak).max()))
+        if rows > 1:
+            assert torch.equal(got[1], t[0][1])
