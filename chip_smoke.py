@@ -46,14 +46,29 @@ own pitch) on three more main paths:
   CELT first losses on the device (2 pitch_track + 1 lpc_synth per
   concealing step);
 * mixed-p10: transfer="p10" with 48 kHz SILK, mixed-loss's first 6 steps
-  (the packed mixed step and its concealing variant).
+  (the packed mixed step and its concealing variant);
+* mixed-switch: mixed with every stream i of i % 16 == 15 (64 streams)
+  replaced by sequence (i // 16) % 24 of tests/data/switch_traffic.npz
+  (read with numpy alone): stereo CELT -> SILK -> hybrid -> CELT mode
+  switches and SILK bandwidth switches, whose redundant CELT blocks the
+  loop decodes on the host (the shadow decode) and crossfades into the
+  ring.  Every step from 1 on must carry a redundant block and both kinds
+  must occur; each step's blocks, kinds and shadow decodes are printed;
+* mixed-switch-p10: the same on transfer="p10" with 48 kHz SILK.
 
-Streams 0-5 (two of each kind) of each mixed path are checked against the
-port's CPU run at B=6 as streams 0-3 of the CELT paths are (below), with
-the 1e-3 gate from a CELT stream's first loss on; the mixed serve rates, the ToC parse and
-plane A times, the upload words (internal and 48 kHz SILK) and the mixed
-device step (CUDA events, kernels per step under the profiler) are
-printed.
+Streams 0-5 (two of each kind) of each mixed path, and four switching
+streams (15, 31, 47, 63) on the switch paths, are checked against the
+port's CPU run of their columns as streams 0-3 of the CELT paths are
+(below), with the 1e-3 gate from a CELT stream's first loss on; the mixed
+serve rates (mixed, mixed-loss, mixed-switch), the shadow decode's host
+ms a redundant block and a step, the ToC parse and plane A times, the
+upload words (internal and 48 kHz SILK) and the mixed device step (CUDA
+events, kernels per step under the profiler) are printed.
+
+run_pipelined: both decoders at B=1024 for 3 steps (BatchedCeltDecoder on
+the CELT payloads, BatchedOpusDecoder on the mixed traffic, p10 with 48
+kHz SILK), with their launch counts; streams 0-5 of the last step against
+the port's CPU run; the host ms a step.
 
 Each kernel is timed three ways, on the synthetic inputs and on the
 recorded ones: the wrapper's whole call, the bare library call on C
@@ -71,6 +86,7 @@ non-zero; without a CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -109,6 +125,12 @@ SILK_BYTES, HYBRID_BYTES = 60, 160  # SILK WB at 24 kbps, hybrid SWB at 64 kbps
 # ToC bytes: CELT FB 20 ms stereo (config 31), SILK WB 20 ms (9), hybrid SWB 20 ms (13)
 TOC_CELT, TOC_SILK, TOC_HYBRID = bytes([31 << 3 | 4]), bytes([9 << 3]), bytes([13 << 3])
 LPC_PEAK_TOL = 1e-3  # lpc_synth (kernel and f32 plain) vs float64, of each row's peak
+# The switching traffic (tools/make_switch_traffic.py): stream i with
+# i % SWITCH_EVERY == 15 carries fixture sequence (i // SWITCH_EVERY) % 24.
+SWITCH_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "switch_traffic.npz"
+SWITCH_EVERY = 16
+SWITCH_CPU_STREAMS = [0, 1, 2, 3, 4, 5, 15, 31, 47, 63]  # held to the CPU run
+PIPELINED_STEPS = 3
 
 
 def card() -> str:
@@ -1004,12 +1026,13 @@ def with_mixed_losses(batches) -> list:
     return out
 
 
-def serve_mixed_steps(dec, batches) -> dict:
-    """Serve one step per call; keep streams 0-5's PCM, each step's
-    post-filter activity, count of streams flagged for device
-    concealment, hybrid streams and upload words."""
+def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS)) -> dict:
+    """Serve one step per call; keep the PCM of streams `keep` (0-5 by
+    default), each step's post-filter activity, count of streams flagged
+    for device concealment, hybrid streams and upload words."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
+    keep = list(keep)
     pcm, chunks, flagged, hybrid, words = [], [], [], [], []
     for packets in batches:
         fallbacks = dec.plan_fallbacks
@@ -1017,7 +1040,7 @@ def serve_mixed_steps(dec, batches) -> dict:
         ring = dec._serve_ring
         if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
             raise AssertionError("mixed serve produced non-finite PCM")
-        pcm.append(ring[:MIXED_CPU_STREAMS].cpu().numpy().copy())
+        pcm.append(ring[keep].cpu().numpy())
         if dec.transfer != "plan":
             slot = dec._pk_slots[0]
         elif dec.plan_fallbacks == fallbacks:
@@ -1031,28 +1054,36 @@ def serve_mixed_steps(dec, batches) -> dict:
         words.append(slot["upload_words"])
     if tuple(ring.shape) != (dec.batch, FRAME, C):
         raise AssertionError(f"mixed serve produced {tuple(ring.shape)} PCM")
-    return {"pcm": np.concatenate(pcm, axis=1), "ranges": dec.final_ranges()[:MIXED_CPU_STREAMS],
+    ranges = dec.final_ranges()
+    pitch = getattr(dec, "_serve_plc_pitch", None)
+    return {"pcm": np.concatenate(pcm, axis=1), "ranges": [ranges[i] for i in keep],
             "chunks": chunks, "flagged": flagged, "hybrid": hybrid, "words": words,
-            "plc_pitch": dec._serve_plc_pitch[:MIXED_CPU_STREAMS].cpu().numpy()
-            if getattr(dec, "_serve_plc_pitch", None) is not None else None}
+            "plc_pitch": None if pitch is None else pitch[keep].cpu().numpy()}
 
 
 def mixed_path(dev, name: str, batches, where: str) -> dict:
     """Serve the mixed traffic through BatchedOpusDecoder at B=1024 with the
     launch counts set to 0 just before and read just after.  `name` is
     mixed (plan transfer, internal SILK), mixed-loss (the same with
-    losses) or mixed-p10 (p10, 48 kHz SILK, losses).  On the plan
+    losses), mixed-p10 (p10, 48 kHz SILK, losses), mixed-switch (mixed with
+    the switching streams of `with_switches`, plan and internal SILK) or
+    mixed-switch-p10 (the same on p10 with 48 kHz SILK).  On the plan
     transfer no step may fall back to the packed path; every step with
     streams flagged for concealment must run a concealing variant; on
     mixed the kernels are held to their plain versions on the first
-    step's recorded inputs (hybrid rows included).  Then streams 0-5 (two
-    of each kind) are checked against the port's CPU run at B=6."""
+    step's recorded inputs (hybrid rows included); on the switch paths
+    every step from 1 on must carry a redundant CELT block and both kinds
+    must occur.  Then streams 0-5 (two of each kind), and on the switch
+    paths four switching streams too, are checked against the port's CPU
+    run of their columns."""
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
     from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
     from opus_tpu_torch.dsp.postfilter import postfilter
     from opus_tpu_torch.dsp.rotation import rot_pass
 
-    transfer, silk = ("p10", "pcm48") if name == "mixed-p10" else ("plan", "internal")
+    transfer, silk = ("p10", "pcm48") if name.endswith("p10") else ("plan", "internal")
+    switching = name.startswith("mixed-switch")
+    keep = SWITCH_CPU_STREAMS if switching else list(range(MIXED_CPU_STREAMS))
     dec = BatchedOpusDecoder(B, C, transfer=transfer, silk_transfer=silk, device=dev)
     variants = []
     for attr in ("_mixed_plan_serving_step", "_mixed_serving_step"):
@@ -1066,10 +1097,10 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
                 "lpc_synth": lpc_synth}
     captured = {}
-    with recording_inputs(captured):
+    with recording_inputs(captured), shadow_probe(dec) as shadow:
         for fn in counters.values():
             fn.launches = 0
-        got = serve_mixed_steps(dec, batches)
+        got = serve_mixed_steps(dec, batches, keep)
         launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
@@ -1081,24 +1112,112 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     plc_steps = check_launches(launches, got["chunks"],
                                len(batches) if transfer == "plan" else 0, variants,
                                got["flagged"])
-    if (name == "mixed") == (plc_steps > 0):
+    if (name in ("mixed-loss", "mixed-p10")) != (plc_steps > 0):
         raise AssertionError(f"{name} concealed on {plc_steps} steps")
     if min(got["hybrid"]) == 0:
         raise AssertionError("a mixed step decoded no hybrid stream")
+    if switching:
+        check_switch_steps(name, shadow["steps"])
     real = None
     if name == "mixed":
         label = f"mixed plan step 1 ({got['hybrid'][0]} hybrid streams)"
         real = {"rotation": rotation_on_real_chains(captured["rotation"], where, label),
                 "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where, label)}
 
-    n = MIXED_CPU_STREAMS
-    cpu = BatchedOpusDecoder(n, C, transfer=transfer, silk_transfer=silk, device="cpu")
-    want = serve_mixed_steps(cpu, [pk[:n] for pk in batches])
+    cols = [[pk[i] for i in keep] for pk in batches]
+    cpu = BatchedOpusDecoder(len(keep), C, transfer=transfer, silk_transfer=silk, device="cpu")
+    want = serve_mixed_steps(cpu, cols, range(len(keep)))
     # CELT streams (i % 3 == 0) conceal first losses on the device; SILK and
     # hybrid losses are concealed in plane A, which is shared, so exact.
-    pcm_err = check_against_cpu(name, got, want, batches, n, lambda i: i % 3 == 0)
+    pcm_err = check_against_cpu(name, got, want, cols, len(keep),
+                                lambda j: keep[j] % 3 == 0 and keep[j] % SWITCH_EVERY != 15)
     return {"launches": launches, "chunks": got["chunks"], "real": real, "variants": variants,
-            "pcm_err": pcm_err, "words": got["words"]}
+            "pcm_err": pcm_err, "words": got["words"], "shadow": shadow["steps"]}
+
+
+def load_switch_traffic() -> list:
+    """The committed switching traffic (tools/make_switch_traffic.py),
+    read with numpy alone: steps[t][sequence], whole Opus packets."""
+    data = np.load(SWITCH_FIXTURE, allow_pickle=False)
+    blob, lengths = data["packets"].tobytes(), data["lengths"]
+    ends = np.cumsum(lengths.ravel())
+    pkts = [blob[e - n : e] for e, n in zip(ends, lengths.ravel())]
+    seqs, steps = lengths.shape
+    if steps != STEPS:
+        raise AssertionError(f"{SWITCH_FIXTURE} holds {steps} steps, not {STEPS}")
+    return [[pkts[s * steps + t] for s in range(seqs)] for t in range(steps)]
+
+
+def with_switches(batches) -> list:
+    """The mixed-switch traffic: the mixed traffic with every stream i of
+    i % SWITCH_EVERY == 15 (64 streams) replaced by fixture sequence
+    (i // SWITCH_EVERY) % 24: stereo CELT -> SILK -> hybrid -> CELT mode
+    switches (even sequences) and SILK NB -> wider bandwidth switches
+    (odd), with their redundant CELT blocks."""
+    fixture = load_switch_traffic()
+    n = len(fixture[0])
+    return [[fixture[f][(i // SWITCH_EVERY) % n] if i % SWITCH_EVERY == 15 else p
+             for i, p in enumerate(pk)] for f, pk in enumerate(batches)]
+
+
+def shadow_probe(dec):
+    """Context manager: while it is open, every _collect_corrections call
+    of `dec` records the step's redundant blocks (and how many are
+    celt_to_silk), the shadow decodes and its host seconds, and the
+    scalar CeltDecoder.decode records each call's host seconds (the
+    shadow decode of one block).  Yields {"steps": [...], "decode_s":
+    [...]}."""
+    import contextlib
+
+    from opus_tpu_torch.celt.decoder import CeltDecoder
+
+    rec = {"steps": [], "decode_s": []}
+    real_collect, real_decode = dec._collect_corrections, CeltDecoder.decode
+
+    def decode(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_decode(self, *args, **kw)
+        finally:
+            rec["decode_s"].append(time.perf_counter() - t0)
+
+    def collect(packets, rcs, *rest):
+        red = (rcs > 0) & (rcs & 1 == 1)
+        n0 = len(rec["decode_s"])
+        t0 = time.perf_counter()
+        corrs = real_collect(packets, rcs, *rest)
+        rec["steps"].append({"blocks": int(red.sum()),
+                             "celt_to_silk": int((red & ((rcs >> 1) & 1 == 1)).sum()),
+                             "decodes": len(rec["decode_s"]) - n0,
+                             "s": time.perf_counter() - t0})
+        return corrs
+
+    @contextlib.contextmanager
+    def patched():
+        dec._collect_corrections, CeltDecoder.decode = collect, decode
+        try:
+            yield rec
+        finally:
+            del dec._collect_corrections
+            CeltDecoder.decode = real_decode
+
+    return patched()
+
+
+def check_switch_steps(name: str, steps: list) -> None:
+    """Print each step's redundant blocks by kind and its shadow decodes;
+    fail unless every step from 1 on carries a redundant block and both
+    kinds occur."""
+    for t, st in enumerate(steps):
+        print(f"{name} step {t}: redundant blocks {st['blocks']} (celt_to_silk "
+              f"{st['celt_to_silk']}, silk_to_celt {st['blocks'] - st['celt_to_silk']}), "
+              f"shadow decodes {st['decodes']}, _collect_corrections host ms {st['s'] * 1e3}")
+    empty = [t for t, st in enumerate(steps) if t >= 1 and st["blocks"] == 0]
+    c2s = sum(st["celt_to_silk"] for st in steps)
+    s2c = sum(st["blocks"] - st["celt_to_silk"] for st in steps)
+    if empty or not c2s or not s2c or not sum(st["decodes"] for st in steps):
+        raise AssertionError(f"{name}: steps {empty} carry no redundant block, or a kind is "
+                             f"missing (celt_to_silk {c2s}, silk_to_celt {s2c})")
 
 
 def mixed_rate(dev, batches, transfer: str, silk: str, where: str, name: str) -> float:
@@ -1119,6 +1238,101 @@ def mixed_rate(dev, batches, transfer: str, silk: str, where: str, name: str) ->
     print(f"serve e2e B={B} {name} {len(batches)} steps/run: audio_s_per_s median="
           f"{statistics.median(rates)} runs={rates} ({where})")
     return statistics.median(rates)
+
+
+def switch_rate(dev, batches, where: str) -> float:
+    """The mixed-switch serve rate (plan, internal SILK) as mixed_rate
+    measures it, and the shadow decode's host cost over the 5 timed runs:
+    ms a redundant block (one CeltDecoder.decode) and _collect_corrections
+    ms a step, with the blocks a step."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    dec = BatchedOpusDecoder(B, C, transfer="plan", silk_transfer="internal", device=dev)
+    dec.serve(batches)  # warm-up
+    runs = []
+    with shadow_probe(dec) as shadow:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            dec.serve(batches)
+            runs.append(time.perf_counter() - t0)
+    if dec.plan_fallbacks:
+        raise AssertionError(f"{dec.plan_fallbacks} mixed-switch steps fell back while timing")
+    rates = sorted(B * len(batches) * FRAME / 48000.0 / r for r in runs)
+    steps = shadow["steps"]
+    blocks = [st["blocks"] for st in steps]
+    if not shadow["decode_s"]:
+        raise AssertionError("the timed mixed-switch runs decoded no redundant block")
+    print(f"serve e2e B={B} mixed-switch {len(batches)} steps/run: audio_s_per_s median="
+          f"{statistics.median(rates)} runs={rates} ({where})")
+    print(f"shadow decode mixed-switch B={B} over 5 runs: host ms a block median="
+          f"{statistics.median(shadow['decode_s']) * 1e3} mean="
+          f"{statistics.fmean(shadow['decode_s']) * 1e3} ({len(shadow['decode_s'])} blocks); "
+          f"_collect_corrections host ms a step median="
+          f"{statistics.median(st['s'] for st in steps) * 1e3} max="
+          f"{max(st['s'] for st in steps) * 1e3}; redundant blocks a step median="
+          f"{statistics.median(blocks)} max={max(blocks)} ({where})")
+    return statistics.median(rates)
+
+
+def pipelined_phase(dev, clean, mixed, where: str) -> dict:
+    """run_pipelined of both decoders at B=1024 over PIPELINED_STEPS steps:
+    BatchedCeltDecoder (f32 planes) on the CELT payloads and
+    BatchedOpusDecoder (p10, 48 kHz SILK) on the mixed traffic.  The
+    launch counts are set to 0 just before each and read just after: the
+    post-filter once a step (twice when a step mixes short and long blocks
+    and runs both variants), no rotation and no scan.  The last step's
+    streams 0-5 are held to the port's CPU run of their columns (equal
+    final ranges, PCM within CPU_PCM_TOL); then the host ms a step, median
+    of 5 runs of the steps after the checked one."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
+    from opus_tpu_torch.dsp.postfilter import postfilter
+    from opus_tpu_torch.dsp.rotation import rot_pass
+
+    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
+                "lpc_synth": lpc_synth}
+    cases = {
+        "pipelined-celt": (lambda n, d: BatchedCeltDecoder(n, C, device=d),
+                           lambda dec, b: dec.run_pipelined(b, FRAME), clean),
+        "pipelined-mixed": (lambda n, d: BatchedOpusDecoder(n, C, transfer="p10",
+                                                            silk_transfer="pcm48", device=d),
+                            lambda dec, b: dec.run_pipelined(b), mixed),
+    }
+    out = {}
+    n = MIXED_CPU_STREAMS
+    for name, (make, run, batches) in cases.items():
+        steps = batches[:PIPELINED_STEPS]
+        dec = make(B, dev)
+        for fn in counters.values():
+            fn.launches = 0
+        pcm = run(dec, steps)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if tuple(pcm.shape) != (B, FRAME, C) or not bool(torch.isfinite(pcm).all()):
+            raise AssertionError(f"{name} returned {tuple(pcm.shape)} PCM or non-finite values")
+        if (not len(steps) <= launches["postfilter"] <= 2 * len(steps)
+                or launches["rotation"] or launches["pitch_track"] or launches["lpc_synth"]):
+            raise AssertionError(f"{name}: kernel launches {launches} over {len(steps)} steps")
+        cpu = make(n, "cpu")
+        want = run(cpu, [pk[:n] for pk in steps])
+        err = float((pcm[:n].cpu() - want).abs().max())
+        ranges = dec.final_ranges()[:n]
+        print(f"main path {name}: {len(steps)} steps, kernel launches {launches}, last step "
+              f"streams 0-{n - 1} max_abs_err vs CPU={err}, final ranges {ranges} vs CPU "
+              f"{cpu.final_ranges()}")
+        if not err < CPU_PCM_TOL or ranges != cpu.final_ranges():
+            raise AssertionError(f"{name}: last step off the CPU run ({err}) or ranges differ")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run(dec, batches[PIPELINED_STEPS : 2 * PIPELINED_STEPS])
+            times.append((time.perf_counter() - t0) / PIPELINED_STEPS)
+        ms = statistics.median(times) * 1e3
+        print(f"run_pipelined {name} B={B}: host ms a step median={ms} runs="
+              f"{sorted(t * 1e3 for t in times)} audio_s_per_s={B * FRAME / 48000.0 / (ms / 1e3)} "
+              f"({where})")
+        out[name] = {"launches": launches, "chunks": [], "ms": ms}
+    return out
 
 
 def mixed_device(dev, batches, where: str) -> None:
@@ -1202,6 +1416,10 @@ def main() -> int:
              "mixed": mixed_path(dev, "mixed", mixed, where),
              "mixed-loss": mixed_path(dev, "mixed-loss", mixed_lossy, where),
              "mixed-p10": mixed_path(dev, "mixed-p10", mixed_lossy[:MIXED_P10_STEPS], where)}
+    switch = with_switches(mixed)
+    paths["mixed-switch"] = mixed_path(dev, "mixed-switch", switch, where)
+    paths["mixed-switch-p10"] = mixed_path(dev, "mixed-switch-p10", switch, where)
+    paths.update(pipelined_phase(dev, clean, mixed, where))
     plan = paths["plan"]
 
     rate_p10 = serve_rate(dev, "p10", lossy, where)
@@ -1214,8 +1432,10 @@ def main() -> int:
     rate_mixed = mixed_rate(dev, mixed, "plan", "internal", where, "mixed")
     rate_mixed_loss = mixed_rate(dev, mixed_lossy, "plan", "internal", where, "mixed-loss")
     mixed_device(dev, mixed, where)
+    rate_switch = switch_rate(dev, switch, where)
     print(f"serve e2e mixed summary B={B} (plan, internal SILK): mixed={rate_mixed} "
-          f"mixed-loss={rate_mixed_loss} audio_s_per_s, plan fallbacks 0 ({where})")
+          f"mixed-loss={rate_mixed_loss} mixed-switch={rate_switch} audio_s_per_s, plan "
+          f"fallbacks 0 ({where})")
 
     def launches(kernel):
         by_path = {k: v["launches"][kernel] for k, v in paths.items()}

@@ -18,13 +18,15 @@ per step:
 Fast-path contract (steady-state serving): one Opus frame per packet and
 one frame duration per step; violations raise with the stream index.  A
 packet entry is bytes, None (lost) or ("fec", next_packet) (recover the
-lost frame from the next packet's SILK LBRR).  A SILK/hybrid -> CELT
-switch crossfades plane A's SILK PLC row into the frame head on the
-device ring (dsp/transitions.py).  Redundant 5 ms CELT blocks (sent
-around some mode and bandwidth switches) need the reference's host shadow
-decoder, which the port does not have yet: a step with one raises
-NotImplementedError naming the stream rather than serve it without its
-crossfade.
+lost frame from the next packet's SILK LBRR).  Mode and bandwidth
+switches get the scalar decoder's exact transition PCM: plane A reports a
+transition descriptor per stream, the redundant 5 ms CELT blocks of a
+switch are decoded on the host by a shadow scalar CELT decoder per
+stream (_collect_corrections, celt/decoder.py), and the windowed
+crossfades land on the device ring after the step (dsp/transitions.py).
+The one approximation left is the reference's: the first <=5 ms of a
+switch into CELT whose transition depends on the CELT decode memory on
+the device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from .. import packet as pkt_mod
 from ..celt import modes
+from ..celt.decoder import CeltDecoder
 from ..dsp.synthesis import (
     SynthState,
     _silk_words,
@@ -58,6 +61,8 @@ from .pipeline import ServingSlots
 _MODE_CODE = {pkt_mod.CodecMode.SILK_ONLY: 0, pkt_mod.CodecMode.HYBRID: 1,
               pkt_mod.CodecMode.CELT_ONLY: 2}
 TRANSFERS = ("p12", "p10", "p8", "plan")
+#: A redundant CELT block's end band by ToC bandwidth (NB, MB, WB, SWB, FB).
+CELT_END_BAND = (13, 17, 17, 19, 21)
 
 
 class BatchedOpusDecoder(ServingSlots):
@@ -68,7 +73,7 @@ class BatchedOpusDecoder(ServingSlots):
     to the packed form for that step) or a packed spectral form
     "p12"/"p10"/"p8".  silk_transfer: "pcm48" ships SILK PCM at 48 kHz,
     "internal" at the SILK internal rate (3x fewer words), resampled on
-    the device; decode_frames() needs "pcm48".
+    the device; decode_frames() and run_pipelined() need "pcm48".
     """
 
     NB = 21
@@ -99,6 +104,9 @@ class BatchedOpusDecoder(ServingSlots):
             for _ in range(2)
         ]
         self._frame_slot = 0
+        # the redundant-block shadow decoders (_collect_corrections)
+        self._shadow: dict = {}
+        self._shadow_warm = np.zeros(batch, bool)
 
     def final_ranges(self) -> list[int]:
         return [int(r) for r in self.native.ranges]
@@ -148,23 +156,64 @@ class BatchedOpusDecoder(ServingSlots):
         self._last_frame48 = frame48
         return frame48, (b"".join(payloads), lens, modes_np, bws, frame48, schs)
 
-    def _collect_corrections(self, rcs) -> list:
+    def _collect_corrections(self, packets, rcs, toc) -> list:
         """Plane A's transition descriptors -> the ring's crossfade rows
-        [(stream, kind 0, pcm [240, C] f32)]: the head of a SILK/hybrid ->
-        CELT switch fades in plane A's 10 ms SILK PLC row.  A redundant
-        CELT block (descriptor bit 0) raises: its PCM needs the shadow
-        decode that the port does not have yet."""
+        [(stream, kind, pcm [240, C] f32)], empty on ordinary steps.
+
+        A descriptor (opus_frontend.cpp opus_fe_decode) packs bit 0 a
+        redundant CELT block present, bit 1 celt_to_silk, bits 2-12 its
+        bytes, bits 13-23 its offset in the payload, bit 24 a SILK/hybrid
+        -> CELT switch.  Kind 0 replaces and fades the frame head: plane
+        A's 10 ms SILK PLC row on a switch into CELT, or the redundant
+        block of a celt_to_silk switch; kind 1 fades the tail into the
+        redundant block of a silk_to_celt switch.  The blocks are decoded
+        by a shadow CeltDecoder per stream, reset for silk_to_celt; a
+        celt_to_silk block continues the CELT state, so it is decoded
+        only from a warm shadow (one whose last CELT activity was a
+        redundant block; a real CELT or hybrid frame, decoded on the
+        device, makes it cold) and is otherwise left uncorrected, as in
+        the reference.  Call once per step, after plane A succeeded: every
+        call advances the shadows."""
+        _, _, modes_np, bws, _, schs = toc
         corrs = []
-        for i in np.flatnonzero(rcs > 0):
+        for ii in np.flatnonzero(rcs > 0):
+            i = int(ii)
             desc = int(rcs[i])
-            if desc & 1:
-                raise NotImplementedError(
-                    f"stream {int(i)}: a redundant CELT block (mode or bandwidth switch) "
-                    f"needs the shadow decode, which the port does not have yet")
-            if desc & (1 << 24):
+            red_present = desc & 1
+            celt_to_silk = (desc >> 1) & 1
+            red_bytes = (desc >> 2) & 0x7FF
+            red_off = (desc >> 13) & 0x7FF
+            if desc & (1 << 24) and not red_present:
                 C = self.channels
                 trans = self.native.trans[i, : 240 * C].reshape(240, C)
-                corrs.append((int(i), 0, trans.astype(np.float32) / 32768.0))
+                corrs.append((i, 0, trans.astype(np.float32) / 32768.0))
+            if not red_present:
+                continue
+            pkt = packets[i][1] if isinstance(packets[i], tuple) else packets[i]
+            sh = self._shadow.get(i)
+            if sh is None:
+                sh = self._shadow[i] = CeltDecoder(self.channels, 1)
+            red = pkt[pkt_mod.parse_packet(pkt).payload_offset :][red_off : red_off + red_bytes]
+            if not celt_to_silk:
+                sh.reset()
+            if (not celt_to_silk or self._shadow_warm[i]) and len(red) == red_bytes > 0:
+                sh.start_band = 0
+                sh.end_band = CELT_END_BAND[int(bws[i])]
+                sh.stream_channels = int(schs[i])
+                try:
+                    pcm = np.asarray(sh.decode(red, 240), np.float32)
+                except Exception:  # noqa: BLE001
+                    # The reference's boundary: an undecodable block leaves
+                    # its stream's frame uncorrected and its shadow cold,
+                    # and the batch serves on.
+                    self._shadow_warm[i] = False
+                    continue
+                corrs.append((i, 0 if celt_to_silk else 1, pcm))
+                self._shadow_warm[i] = True
+            else:
+                self._shadow_warm[i] = False
+        if self._shadow:
+            self._shadow_warm[modes_np != 0] = False
         return corrs
 
     def _plane_a_packed(self, packets: list, slot: dict) -> list:
@@ -172,7 +221,7 @@ class BatchedOpusDecoder(ServingSlots):
         if frame48 != slot["frame48"]:
             raise ValueError("frame duration changed mid-serve")
         rcs = self.native.decode_batch_packed_into(toc, slot, PACK_BITS[slot["mode"]])
-        return self._collect_corrections(rcs)
+        return self._collect_corrections(packets, rcs, toc)
 
     def _plane_a_plan(self, packets: list, slot: dict) -> list:
         """Plan-mode decode into a mixed plan slot, the SILK rows compacted.
@@ -183,7 +232,7 @@ class BatchedOpusDecoder(ServingSlots):
             raise ValueError("frame duration changed mid-serve")
         rcs = self.native.decode_batch_plan_into(toc, slot)
         compact_plan_silk(slot, self._silk_shape(frame48)[0])
-        return self._collect_corrections(rcs)
+        return self._collect_corrections(packets, rcs, toc)
 
     def _silk_shape(self, frame48: int) -> tuple[int, int]:
         """(int16 samples, int32 words) of a stream's SILK region."""
@@ -191,20 +240,42 @@ class BatchedOpusDecoder(ServingSlots):
 
     # --- decode_frames (48 kHz SILK, one functional step) ----------------
 
-    def decode_frames(self, packets: list) -> np.ndarray:
-        """One step: decode one frame per stream -> pcm [B, frame48, C]."""
+    def _frames_plane_a(self, packets: list) -> tuple[int, dict]:
+        """Plane A of decode_frames and run_pipelined into the next of two
+        slots (f32 spectra, 48 kHz SILK PCM): (frame48, slot)."""
         if self.silk_internal:
-            raise ValueError("decode_frames needs silk_transfer='pcm48' (internal-rate SILK "
-                             "is a serve()-only transfer)")
+            raise ValueError("decode_frames and run_pipelined need silk_transfer='pcm48' "
+                             "(internal-rate SILK is a serve()-only transfer)")
         frame48, toc = self._toc_arrays(packets)
         slot = self._frame_slots[self._frame_slot]
         self._frame_slot = 1 - self._frame_slot
         self.native.decode_batch(toc, slot)
+        return frame48, slot
+
+    def decode_frames(self, packets: list) -> np.ndarray:
+        """One step: decode one frame per stream -> pcm [B, frame48, C]."""
+        frame48, slot = self._frames_plane_a(packets)
         if frame48 > 960:
             # 40/60 ms packets are SILK-only; no CELT step is needed.
             silk = slot["silk"][:, : frame48 * self.channels]
             return silk.reshape(self.batch, frame48, self.channels).astype(np.float32) / 32768.0
         return self._dispatch(frame48, slot).cpu().numpy()
+
+    def run_pipelined(self, batches: list):
+        """Decode a sequence of steps, one step in flight (see
+        ServingSlots._one_in_flight); returns the last step's PCM on the
+        device, [B, frame48, C] f32.  A step of 40/60 ms SILK-only frames
+        returns the raw int16 SILK region [B, frame48 * C], as the
+        reference does (unlike decode_frames' float PCM)."""
+
+        def dispatch(prepared):
+            frame48, slot = prepared
+            if frame48 > 960:
+                return torch.tensor(slot["silk"][:, : frame48 * self.channels],
+                                    device=self.device)
+            return self._dispatch(frame48, slot)
+
+        return self._one_in_flight(self._frames_plane_a, dispatch, batches)
 
     def _dispatch(self, frame48: int, slot: dict):
         meta = slot["meta"]

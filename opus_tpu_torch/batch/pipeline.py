@@ -36,10 +36,11 @@ TRANSFERS = ("f32", "q14", "p12", "p10", "p8", "plan")
 
 
 class ServingSlots:
-    """What both serve loops (BatchedCeltDecoder and the mixed-mode
-    BatchedOpusDecoder) share: pinned host slots with the CUDA event of
-    their last copy, the upload, and the host's per-step picks of the plan
-    executor's size class and of the concealment variant."""
+    """What both decoders (BatchedCeltDecoder and the mixed-mode
+    BatchedOpusDecoder) share: for their serve loops, pinned host slots
+    with the CUDA event of their last copy, the upload, and the host's
+    per-step picks of the plan executor's size class and of the
+    concealment variant; and the run_pipelined loop."""
 
     #: Plan executor size classes (p_max, f_max, iyw): the leaf-table and
     #: pulse-word windows.  The serve loop picks the smallest class the
@@ -99,6 +100,24 @@ class ServingSlots:
     def _reuse(slot) -> None:
         if slot["copied"] is not None:
             slot["copied"].synchronize()
+
+    def _one_in_flight(self, plane_a, dispatch, batches: list):
+        """The run_pipelined loop: per step, plane A on the host, then a
+        wait on the previous step's CUDA event (not a device-wide sync),
+        then the step's dispatch; one step is in flight while plane A of
+        the next runs.  Returns the last dispatch's result, complete."""
+        out = done = None
+        for packets in batches:
+            prepared = plane_a(packets)
+            if done is not None:
+                done.synchronize()
+            out = dispatch(prepared)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+        if done is not None:
+            done.synchronize()
+        return out
 
     def _serve_plc_state(self, channels: int):
         """The conceal's carried LPC [B, C, 24] and pitch [B], made on
@@ -196,6 +215,13 @@ class BatchedCeltDecoder(ServingSlots):
         """Full pipeline step: plane A then device synthesis; pcm [B, frame, C]."""
         lm, short_mask, args = self._raw_args(frame_size, packets, stream_channels)
         return self._dispatch(lm, short_mask, args).cpu().numpy()
+
+    def run_pipelined(self, batches: list, frame_size: int):
+        """Decode a sequence of steps with the state carried across them,
+        one step in flight (ServingSlots._one_in_flight); returns the last
+        step's PCM on the device, [B, frame, C]."""
+        return self._one_in_flight(lambda packets: self._raw_args(frame_size, packets),
+                                   lambda prepared: self._dispatch(*prepared), batches)
 
     def _serving_step(self, lm: int, pf_chunk: int, pf_active: bool, mode: str):
         key = ("serve", lm, pf_chunk, pf_active, mode)

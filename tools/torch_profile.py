@@ -25,8 +25,10 @@ the difference in kernels per step (the launch budget of concealment).
 
 The mixed traffic (chip_smoke.py's: one stream in three each of CELT,
 SILK WB and hybrid SWB, the plan transfer with the internal SILK
-transfer) gets the same: a serve breakdown of mixed and mixed-loss (with
-the ToC parse apart from plane A), and a profile of the first mixed step
+transfer) gets the same: a serve breakdown of mixed, mixed-loss and
+mixed-switch (with the ToC parse apart from plane A, and the shadow
+decode of redundant blocks and the crossfades on the ring apart from the
+rest), and a profile of the first mixed step
 and of the first mixed-loss step that conceals, with the device time of
 the SILK resampler's products (`_silk_resample`, under a profiler range).
 
@@ -182,15 +184,19 @@ def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
 
 def mixed_breakdown(batches, where: str, name: str) -> None:
     """serve_breakdown for the mixed plan loop (internal SILK): plane A,
-    the ToC parse, the step issue and the rest, and the device busy share."""
+    the ToC parse, the step issue, the shadow decode of redundant blocks
+    (_collect_corrections), the crossfades on the ring (apply_corrections,
+    with the upload of their rows) and the rest, and the device busy
+    share."""
     import chip_smoke as cs
 
-    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.batch import opus_pipeline
 
-    dec = BatchedOpusDecoder(cs.B, cs.C, transfer="plan", silk_transfer="internal",
-                             device=torch.device("cuda"))
+    dec = opus_pipeline.BatchedOpusDecoder(cs.B, cs.C, transfer="plan", silk_transfer="internal",
+                                           device=torch.device("cuda"))
     dec.serve(batches)  # warm-up
-    spent = {"plane A": 0.0, "ToC parse": 0.0, "step issue": 0.0}
+    spent = {"plane A": 0.0, "ToC parse": 0.0, "step issue": 0.0, "shadow": 0.0,
+             "crossfade": 0.0}
 
     def timed(fn, key):
         def run(*a, **k):
@@ -203,11 +209,17 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
 
     dec.native.decode_batch_plan_into = timed(dec.native.decode_batch_plan_into, "plane A")
     dec._toc_arrays = timed(dec._toc_arrays, "ToC parse")
+    dec._collect_corrections = timed(dec._collect_corrections, "shadow")
     for key in list(dec._steps):
         dec._steps[key] = timed(dec._steps[key], "step issue")
-    t0 = time.perf_counter()
-    dec.serve(batches)
-    wall = time.perf_counter() - t0
+    real_apply = opus_pipeline.apply_corrections
+    opus_pipeline.apply_corrections = timed(real_apply, "crossfade")
+    try:
+        t0 = time.perf_counter()
+        dec.serve(batches)
+        wall = time.perf_counter() - t0
+    finally:
+        opus_pipeline.apply_corrections = real_apply
     n = len(batches)
     run = dict(spent)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -219,7 +231,8 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
     busy = sum(_device_us(e) for e in cuda) / 1e6
     print(f"serve {name} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
           f"plane_A={run['plane A'] / n * 1e3} toc_parse={run['ToC parse'] / n * 1e3} "
-          f"step_issue={run['step issue'] / n * 1e3} "
+          f"step_issue={run['step issue'] / n * 1e3} shadow={run['shadow'] / n * 1e3} "
+          f"crossfade={run['crossfade'] / n * 1e3} "
           f"rest={(wall - sum(run.values())) / n * 1e3}; under the profiler: wall ms/step="
           f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} "
           f"device_idle_share={1 - busy / wall_prof} fallbacks={dec.plan_fallbacks} ({where})")
@@ -297,6 +310,7 @@ def main() -> int:
     mixed_lossy = cs.with_mixed_losses(mixed)
     mixed_breakdown(mixed, where, "mixed")
     mixed_breakdown(mixed_lossy, where, "mixed-loss")
+    mixed_breakdown(cs.with_switches(mixed), where, "mixed-switch")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with open(ROOT / "chiprun_out" / "torch_profile.txt", "w") as out:
         for transfer in ("p10", "plan"):
