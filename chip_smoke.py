@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds plane A (g++: the CELT, SILK and Opus engines) and the CUDA
-kernels (nvcc, sm_90a; post-filter, spreading rotation and the two scans
-of the loss concealment) from the sources in the checkout, in parallel,
+kernels (nvcc, sm_90a; post-filter, spreading rotation, the two scans
+of the loss concealment and the SILK synthesis) from the sources in the
+checkout, in parallel,
 and holds each kernel to its plain torch version at the serving shapes
 (the scans also on ties at pitch_track's lane edges, y contiguous and at
 stride 2, and on every chunk geometry of lpc_synth: 1 to 1,081 samples
@@ -70,6 +71,39 @@ the CELT payloads, BatchedOpusDecoder on the mixed traffic, p10 with 48
 kHz SILK), with their launch counts; streams 0-5 of the last step against
 the port's CPU run; the host ms a step.
 
+The SILK-only batch decoder (BatchedSilkDecoder.decode_frames): its
+kernel silk_synth (csrc/silk.cu, the LTP and LPC recurrences of a frame
+in one launch) is first held to its plain version and to a float64 run
+on synthetic rows at 8, 12 and 16 kHz (voiced and unvoiced, lags at
+chunk + 2 and 18 fs_khz, LPC poles at radius 0.995), then:
+
+* silk-only: 1024 mono SILK WB streams (16 kHz internal), 8 steps of 20 ms
+  at 60 B from the port's native SILK encoder (the mixed traffic's voice):
+  one silk_synth launch a step, voiced rows on every step after the
+  first, streams 0-3 within 0.5 int16 LSB of the port's CPU run; the
+  kernel is held to its plain version on the recorded inputs of the first
+  voiced step; prints the rate, the host front end's and the device's ms
+  a step;
+* silk-only-nb: 64 NB streams (8 kHz, order 10, chunk 10), 4 steps,
+  checked as silk-only, not timed.
+
+Multistream sessions (BatchedMultistreamDecoder) from the committed
+libopus traffic, tests/data/multistream_traffic.npz (session i replays
+fixture session i % its count): every session's final range must equal
+libopus's after every packet.
+
+* multistream and multistream-p10: 256 sessions of the 8-channel layout
+  (5 streams, 3 coupled: 1280 elementary streams), CELT at 256 kbps, on
+  the plan and p10 transfers: the launch gates of the CELT paths, no plan
+  fallback, sessions 0-3 against the port's CPU run; timed as the
+  reference benchmark's multistream row (steps x sessions x 0.02 / s);
+* multistream-opus: 64 family-1 SILK sessions (3 channels, 2 streams) on
+  the mixed-mode core; multistream-40ms: 64 sessions of 40 ms code-3 CELT
+  packets (4 channels, 3 streams), two serving steps a packet; checked,
+  not timed.
+
+Every phase's wall time and the total are printed.
+
 Each kernel is timed three ways, on the synthetic inputs and on the
 recorded ones: the wrapper's whole call, the bare library call on C
 arguments converted in advance (the kernel alone), and the plain
@@ -131,6 +165,17 @@ SWITCH_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "s
 SWITCH_EVERY = 16
 SWITCH_CPU_STREAMS = [0, 1, 2, 3, 4, 5, 15, 31, 47, 63]  # held to the CPU run
 PIPELINED_STEPS = 3
+# SILK-only: B mono SILK WB streams (16 kHz internal), 20 ms frames at 60 B
+# (24 kbps) from the port's native encoder; an NB run (8 kHz, order 10,
+# chunk 10) at SILK_NB_B streams is checked, not timed.
+SILK_STEPS, SILK_NB_B, SILK_NB_STEPS = 8, 64, 4
+SILK_RATES = [(8, 10, 10), (12, 20, 10), (16, 20, 16)]  # fs_khz, chunk, LPC order
+SILK_LSB_TOL = 0.5  # card vs the port's CPU run, int16 LSBs, streams 0-3
+SILK_EXACT_TOL = 1e-3  # silk_synth vs its plain version (both round alike), int16 LSBs
+# Multistream: the committed libopus sessions (tools/make_multistream_traffic.py);
+# session i of the batch replays fixture session i % (sessions in the group).
+MS_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "multistream_traffic.npz"
+MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
 
 
 def card() -> str:
@@ -732,7 +777,7 @@ def rotation_on_real_chains(captured: list, where: str, label: str = "plan step"
         heads = args[3] == 0
         chains = int(heads.sum())
         long_chains = int((heads & (args[4] >= 3)).sum())
-        print(f"kernel rotation on {label} pass {name} B={B} n2={args[0].shape[1]}: "
+        print(f"kernel rotation on {label} pass {name} B={args[0].shape[0]} n2={args[0].shape[1]}: "
               f"{chains} chains, {long_chains} of length >= 3, max_abs_err={err}")
         if long_chains == 0:
             raise AssertionError(f"{label} pass {name} rotated no chain of length >= 3")
@@ -741,7 +786,7 @@ def rotation_on_real_chains(captured: list, where: str, label: str = "plan step"
                                  f"{label}'s pass {name}: {err}")
         max_abs = max(max_abs, err)
         times[name] = rotation_times(args)
-        print(f"time rotation B={B} n2={args[0].shape[1]} {label} pass {name}: "
+        print(f"time rotation B={args[0].shape[0]} n2={args[0].shape[1]} {label} pass {name}: "
               f"wrapper_ms={times[name]['ms']} kernel_alone_ms={times[name]['kernel_ms']} "
               f"plain_ms={times[name]['plain_ms']} ({where})")
     return {"max_abs_err": max_abs, "times": times}
@@ -761,7 +806,7 @@ def postfilter_on_real_inputs(rec: tuple, where: str, label: str = "plan step 1"
     rel = err / float(ref.abs().max())
     rows = pf_row_chunks(periods, gains, lm)
     live = rows[rows > 0]
-    print(f"kernel postfilter on {label} B={B} lm={lm} batch chunk={chunk}: "
+    print(f"kernel postfilter on {label} rows={y.shape[0]} lm={lm} batch chunk={chunk}: "
           f"{live.size} of {rows.size} streams active, per-stream chunk min={live.min()} "
           f"median={int(np.median(live))}, periods strides {periods.stride()}: "
           f"max_abs_err={err} max_rel_err={rel}")
@@ -770,7 +815,7 @@ def postfilter_on_real_inputs(rec: tuple, where: str, label: str = "plan step 1"
                              f"{label}'s inputs: rel {rel}")
     t = postfilter_times(y, hist, n, lm, periods, gains, tapsets, chunk)
     t["bytes"] = pf_bytes(periods, gains, n, lm)
-    print(f"time postfilter B={B} C={C} lm={lm} chunk={chunk} {label}: wrapper_ms={t['ms']} "
+    print(f"time postfilter rows={y.shape[0]} lm={lm} chunk={chunk} {label}: wrapper_ms={t['ms']} "
           f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} "
           f"bytes_needed={t['bytes'][0]} bytes_whole_rows={t['bytes'][1]} ({where})")
     return {"max_abs_err": err, "max_rel_err": rel, "times": t}
@@ -842,9 +887,6 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     their plain versions on the recorded inputs; on plan-loss every step
     with streams flagged for concealment must run a concealing variant."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
-    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
-    from opus_tpu_torch.dsp.postfilter import postfilter
-    from opus_tpu_torch.dsp.rotation import rot_pass
 
     transfer = "p10" if name == "p10" else "plan"
     dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
@@ -856,8 +898,7 @@ def main_path(dev, name: str, batches, where: str) -> dict:
         return real_step(lm, chunk, active, size_class, with_plc)
 
     dec._plan_serving_step = spy
-    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-                "lpc_synth": lpc_synth}
+    counters = kernel_counters()
     captured = {}
     with recording_inputs(captured):
         for fn in counters.values():
@@ -991,19 +1032,11 @@ def make_mixed_payloads(celt: list) -> list:
     silk_enc = NativeSilkEncoderBatch(len(silk_i), 16)
     hyb_enc = NativeHybridEncoderBatch(len(hyb_i))
 
-    def voice(idx, rate: int, f: int):
-        n = rate // 50
-        t = (f * n + np.arange(n)) / rate
-        ph = 2 * np.pi * f0[idx, None] * t + 2.0 * np.sin(2 * np.pi * 3.0 * t)
-        level = 0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t + idx[:, None])
-        sig = 0.3 * np.sign(np.sin(ph)) * level + 0.02 * rng.standard_normal((len(idx), n))
-        return sig.astype(np.float32)
-
     batches = []
     for f in range(STEPS):
-        s_pay, s_len = silk_enc.encode_batch(np.round(voice(silk_i, 16000, f) * 32767)
+        s_pay, s_len = silk_enc.encode_batch(np.round(voice(f0, silk_i, 16000, f, rng) * 32767)
                                              .astype(np.int16), SILK_BYTES)
-        h_pay, h_len = hyb_enc.encode_batch(voice(hyb_i, 48000, f), HYBRID_BYTES)
+        h_pay, h_len = hyb_enc.encode_batch(voice(f0, hyb_i, 48000, f, rng), HYBRID_BYTES)
         row = [TOC_CELT + p if k == 0 else None for p, k in zip(celt[f], kinds)]
         for j, i in enumerate(silk_i):
             row[i] = TOC_SILK + bytes(s_pay[j, : s_len[j]])
@@ -1077,9 +1110,6 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     paths four switching streams too, are checked against the port's CPU
     run of their columns."""
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
-    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
-    from opus_tpu_torch.dsp.postfilter import postfilter
-    from opus_tpu_torch.dsp.rotation import rot_pass
 
     transfer, silk = ("p10", "pcm48") if name.endswith("p10") else ("plan", "internal")
     switching = name.startswith("mixed-switch")
@@ -1094,8 +1124,7 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
             return _real(*args)
 
         setattr(dec, attr, spy)
-    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-                "lpc_synth": lpc_synth}
+    counters = kernel_counters()
     captured = {}
     with recording_inputs(captured), shadow_probe(dec) as shadow:
         for fn in counters.values():
@@ -1286,12 +1315,8 @@ def pipelined_phase(dev, clean, mixed, where: str) -> dict:
     of 5 runs of the steps after the checked one."""
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
-    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
-    from opus_tpu_torch.dsp.postfilter import postfilter
-    from opus_tpu_torch.dsp.rotation import rot_pass
 
-    counters = {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-                "lpc_synth": lpc_synth}
+    counters = kernel_counters()
     cases = {
         "pipelined-celt": (lambda n, d: BatchedCeltDecoder(n, C, device=d),
                            lambda dec, b: dec.run_pipelined(b, FRAME), clean),
@@ -1388,6 +1413,393 @@ def mixed_device(dev, batches, where: str) -> None:
           f"({where})")
 
 
+def kernel_counters() -> dict:
+    """The five kernel wrappers by kernel name; each counts its launches."""
+    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
+    from opus_tpu_torch.dsp.postfilter import postfilter
+    from opus_tpu_torch.dsp.rotation import rot_pass
+    from opus_tpu_torch.dsp.silk_synthesis import silk_synthesis_step
+
+    return {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
+            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step}
+
+
+def silk_inputs(fs_khz: int, chunk: int, order: int, rows: int, seed: int, dev):
+    """Synthetic silk_synth inputs of one frame (as tests/test_torch_silk.py
+    makes them): rows 0-1 voiced at lags chunk + 2 and 18 fs_khz (the
+    clamp's edge and the longest lag, whose taps reach the history's first
+    sample), rows 2-3 with an LPC pole pair at radius 0.995, odd rows from
+    3 on unvoiced; LTP taps summing below 1.  Returns (args, kw)."""
+    rng = np.random.default_rng(seed)
+    S = 5 * fs_khz
+    L, H = 4 * S, 18 * fs_khz + 2
+    gexc = (rng.standard_normal((rows, L)) * 300).astype(np.float32)
+    a1 = (rng.standard_normal((rows, order)) * 0.05).astype(np.float32)
+    a2 = (rng.standard_normal((rows, order)) * 0.05).astype(np.float32)
+    for r, th in ((2, 0.2), (3, 0.05)):
+        for a in (a1, a2):
+            a[r] = 0.0
+            a[r, :2] = [2 * 0.995 * np.cos(th), -0.995 ** 2]
+    voiced = np.array([r < 3 or r % 2 == 0 for r in range(rows)])
+    lags = rng.integers(chunk + 2, 18 * fs_khz + 1, (rows, 4)).astype(np.int32)
+    lags[0], lags[1] = chunk + 2, 18 * fs_khz
+    b = (rng.uniform(0.0, 0.35, (rows, 4, 5)) * np.array([0.3, 0.6, 1.0, 0.6, 0.3])
+         ).astype(np.float32)
+    head = (rng.standard_normal((rows, H)) * 1000).astype(np.float32)
+    hist = (rng.standard_normal((rows, order)) * 1000).astype(np.float32)
+    args = [torch.tensor(a, device=dev) for a in (gexc, a1, a2, voiced, lags, b, head, hist)]
+    return args, dict(subfr_len=S, nb_subfr=4, chunk=chunk)
+
+
+def check_silk(args, kw: dict, label: str) -> float:
+    """silk_synth vs its plain version (within SILK_EXACT_TOL: both round
+    every operation alike) and each vs the plain version run in float64
+    (within LPC_PEAK_TOL of each row's peak).  Returns the kernel's max
+    abs error against the plain version (output and history)."""
+    from opus_tpu_torch.dsp.silk_synthesis import _silk_synth_ref, silk_synthesis_step
+
+    got, got_hist = silk_synthesis_step(*args, **kw)
+    want, want_hist = _silk_synth_ref(*args, **kw)
+    f64, _ = _silk_synth_ref(*[a.double() if a.is_floating_point() else a for a in args], **kw)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()), float((got_hist - want_hist).abs().max()))
+    peak = f64.abs().amax(dim=1).clamp_min(1e-30)
+    rel_k = float(((got.double() - f64).abs().amax(dim=1) / peak).max())
+    rel_p = float(((want.double() - f64).abs().amax(dim=1) / peak).max())
+    print(f"kernel silk_synth {label} rows={got.shape[0]} L={got.shape[1]} "
+          f"order={args[1].shape[1]} chunk={kw['chunk']} voiced rows={int(args[3].sum())} "
+          f"lags {int(args[4].min())}-{int(args[4].max())}: max_abs_err vs plain={err}; vs "
+          f"float64 max_err_of_row_peak kernel={rel_k} plain={rel_p}")
+    if not (bool(torch.isfinite(got).all()) and err < SILK_EXACT_TOL and rel_k < LPC_PEAK_TOL
+            and rel_p < LPC_PEAK_TOL):
+        raise AssertionError(f"silk_synth off its plain version or the float64 run ({label}): "
+                             f"{err}, kernel {rel_k}, plain {rel_p}")
+    return err
+
+
+def silk_bytes(args, kw: dict) -> tuple[int, int]:
+    """(bytes silk_synth must move on these inputs, every byte of its
+    arguments and outputs).  Every row reads its voiced flag, gexc, a1, a2
+    and lpc_hist and writes xq and the new history; an unvoiced row's
+    output depends on nothing else.  A voiced row also reads its lags, its
+    LTP taps and the samples of head that its taps reach: subframe k reads
+    head[H + kS - lag_k - 2 : H + kS - lag_k + S + 2], clamped at 0 (what
+    lies past head is P of the frame's earlier subframes, on chip)."""
+    gexc, a1, a2, voiced, lags, b_taps, head, hist = args
+    rows, L = gexc.shape
+    order, H = a1.shape[1], head.shape[1]
+    S, nb = kw["subfr_len"], kw["nb_subfr"]
+    v = voiced.cpu().numpy()
+    lag = lags.cpu().numpy()[v].astype(np.int64)
+    pos = np.arange(H)
+    reach = np.zeros((len(lag), H), bool)
+    for k in range(nb):
+        lo = H + k * S - lag[:, k] - 2
+        reach |= (pos >= lo[:, None]) & (pos < lo[:, None] + S + 4)
+    every_row = voiced.element_size() + 4 * (2 * L + 4 * order)
+    voiced_row = 4 * (nb + nb * b_taps.shape[2])  # lags, LTP taps
+    needed = rows * every_row + int(v.sum()) * voiced_row + 4 * int(reach.sum())
+    whole = sum(a.numel() * a.element_size() for a in args) + 4 * (gexc.numel() + hist.numel())
+    return needed, whole
+
+
+def silk_times(args, kw: dict) -> dict:
+    """ms of the wrapper, the bare kernel launch on C arguments prepared in
+    advance and the plain version, with the bound: the bytes these inputs
+    need (silk_bytes) over the HBM rate, or the LPC's dependent chain (one
+    multiply-add, 4 cycles, a sample) at CLOCK_HZ, whichever is larger;
+    both terms are kept.  16 copies of the inputs (64 MB at B=1024,
+    16 kHz) cycle beyond the 50 MB L2."""
+    from opus_tpu_torch.dsp import silk_synthesis as ss
+
+    sets = [[a.clone() for a in args] + [torch.empty_like(args[0]), torch.empty_like(args[7])]
+            for _ in range(16)]
+    prepared = [ss._kernel_args(*a, **kw) for a in sets]
+    L = args[0].shape[1]
+    nbytes, whole = silk_bytes(args, kw)
+    bound, by = chain_bound_ms(nbytes, 4 * L)
+    return {"ms": best_ms(cycled(lambda a: ss.silk_synthesis_step(*a[:8], **kw), sets), 40),
+            "kernel_ms": best_ms(bare("opus_silk_synth", prepared), 40),
+            "plain_ms": cuda_ms(lambda: ss._silk_synth_ref(*args, **kw), 2),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "bytes_whole_args": whole,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "chain_ms": 4 * L / CLOCK_HZ * 1e3}
+
+
+def print_silk_times(t: dict, label: str, where: str) -> None:
+    print(f"time silk_synth {label}: wrapper_ms={t['ms']} kernel_alone_ms={t['kernel_ms']} "
+          f"plain_ms={t['plain_ms']} bound_ms={t['bound_ms']} ({t['bound_by']}; bytes needed "
+          f"{t['bytes']} -> {t['bytes_ms']} ms, of {t['bytes_whole_args']} in the arguments; "
+          f"LPC chain {t['chain_ms']} ms) share_of_bound={t['bound_ms'] / t['kernel_ms']} "
+          f"({where})")
+
+
+def silk_phase(dev, where: str) -> dict:
+    """silk_synth vs its plain version on synthetic inputs of B rows at 8,
+    12 and 16 kHz; times at 16 kHz."""
+    err = 0.0
+    for fs_khz, chunk, order in SILK_RATES:
+        args, kw = silk_inputs(fs_khz, chunk, order, B, 50 + fs_khz, dev)
+        err = max(err, check_silk(args, kw, f"synthetic {fs_khz} kHz"))
+    t = silk_times(args, kw)
+    print_silk_times(t, f"rows={B} 16 kHz synthetic", where)
+    return {"max_abs_err": err, "times": t}
+
+
+def voice(f0, idx, rate: int, f: int, rng) -> np.ndarray:
+    """Frame f at `rate` of the voice streams idx: each a pulse train of its
+    own pitch f0[idx] with a 3 Hz vibrato, a slow level swing and noise."""
+    n = rate // 50
+    t = (f * n + np.arange(n)) / rate
+    ph = 2 * np.pi * f0[idx, None] * t + 2.0 * np.sin(2 * np.pi * 3.0 * t)
+    level = 0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t + idx[:, None])
+    sig = 0.3 * np.sign(np.sin(ph)) * level + 0.02 * rng.standard_normal((len(idx), n))
+    return sig.astype(np.float32)
+
+
+def make_silk_payloads(batch: int, fs_khz: int, steps: int) -> list:
+    """batches[step][stream]: SILK payloads (no ToC) at SILK_BYTES a 20 ms
+    frame from the port's native encoder at fs_khz, of the mixed traffic's
+    voice content (pitches 100-280 Hz)."""
+    from opus_tpu_torch.native.frontend import NativeSilkEncoderBatch
+
+    rng = np.random.default_rng(3)
+    f0 = 100.0 + 180.0 * rng.random(batch)
+    idx = np.arange(batch)
+    enc = NativeSilkEncoderBatch(batch, fs_khz)
+    batches = []
+    for f in range(steps):
+        pcm = np.round(voice(f0, idx, 1000 * fs_khz, f, rng) * 32767).astype(np.int16)
+        pay, lens = enc.encode_batch(pcm, SILK_BYTES)
+        batches.append([bytes(pay[i, : lens[i]]) for i in range(batch)])
+    return batches
+
+
+def silk_path(dev, name: str, fs_khz: int, batch: int, steps: int, where: str) -> dict:
+    """Drive BatchedSilkDecoder.decode_frames at `batch` streams of
+    make_silk_payloads for `steps` steps, with the launch counts set to 0
+    just before and read just after: one silk_synth launch a step, voiced
+    rows on every step after the first.  The host front end (`planes`) and
+    the device step (`synthesize`: upload and launch, by CUDA events) are
+    timed every step, and the inputs of the first step with voiced rows are
+    recorded.  Streams 0-3 are held to the port's CPU run of their payloads
+    within SILK_LSB_TOL (int16 LSBs)."""
+    from opus_tpu_torch.batch.silk_pipeline import BatchedSilkDecoder
+
+    batches = make_silk_payloads(batch, fs_khz, steps)
+    dec = BatchedSilkDecoder(batch, fs_khz, device=dev)
+    real_planes, real_synth = dec.planes, dec.synthesize
+    rec = {"host_s": [], "dev_ms": [], "voiced": [], "inputs": None}
+
+    def planes(payloads):
+        t0 = time.perf_counter()
+        out = real_planes(payloads)
+        rec["host_s"].append(time.perf_counter() - t0)
+        rec["voiced"].append(int(out["voiced"].sum()))
+        return out
+
+    def synthesize(pl):
+        if rec["inputs"] is None and pl["voiced"].any():
+            rec["inputs"] = ({k: v.copy() for k, v in pl.items()}, dec.lpc_hist.clone())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xq = real_synth(pl)
+        end.record()
+        end.synchronize()
+        rec["dev_ms"].append(start.elapsed_time(end))
+        return xq
+
+    dec.planes, dec.synthesize = planes, synthesize
+    counters = kernel_counters()
+    pcm = []
+    t0 = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    for payloads in batches:
+        xq = dec.decode_frames(payloads)
+        if xq.shape != (batch, 20 * fs_khz) or not np.isfinite(xq).all():
+            raise AssertionError(f"{name}: {xq.shape} output or non-finite values")
+        pcm.append(xq[:4].copy())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    wall = time.perf_counter() - t0
+    rate = batch * 0.02 * steps / wall
+    print(f"main path {name}: B={batch} fs={fs_khz} kHz, {steps} steps, voiced rows by step "
+          f"{rec['voiced']}, kernel launches {launches}")
+    print(f"serve e2e {name} B={batch}: audio_s_per_s={rate} over {steps} steps in {wall} s; "
+          f"host front end ms/step median={statistics.median(rec['host_s']) * 1e3} runs="
+          f"{[round(s * 1e3, 1) for s in rec['host_s']]}; device ms/step (upload + silk_synth, "
+          f"CUDA events) median={statistics.median(rec['dev_ms'])} ({where})")
+    if launches["silk_synth"] != steps or sum(launches.values()) != steps:
+        raise AssertionError(f"{name}: kernel launches {launches} over {steps} steps "
+                             f"(one silk_synth a step)")
+    if min(rec["voiced"][1:]) == 0 or rec["inputs"] is None:
+        raise AssertionError(f"{name}: a step after the first has no voiced row "
+                             f"({rec['voiced']})")
+    cpu = BatchedSilkDecoder(4, fs_khz, device="cpu")
+    want = np.concatenate([cpu.decode_frames(p[:4]) for p in batches], axis=1)
+    err = float(np.abs(np.concatenate(pcm, axis=1) - want).max())
+    print(f"{name}: streams 0-3 vs the port's CPU run: worst abs err {err} int16 LSBs "
+          f"(gate {SILK_LSB_TOL})")
+    if not err < SILK_LSB_TOL:
+        raise AssertionError(f"{name}: streams 0-3 off the CPU run by {err} LSBs")
+    return {"launches": launches, "chunks": [], "pcm_err": err, "rate": rate,
+            "host_ms": statistics.median(rec["host_s"]) * 1e3,
+            "dev_ms": statistics.median(rec["dev_ms"]), "inputs": rec["inputs"],
+            "kw": dict(subfr_len=5 * fs_khz, nb_subfr=4, chunk=20 if fs_khz > 8 else 10)}
+
+
+def silk_on_real_inputs(path: dict, dev, where: str) -> dict:
+    """silk_synth vs its plain version on the recorded inputs of the
+    silk-only path's first step with voiced rows, and its times there."""
+    planes, hist = path["inputs"]
+    up = {k: torch.from_numpy(v).to(dev) for k, v in planes.items()}
+    args = [up["gexc"], up["a1"], up["a2"], up["voiced"], up["lags"], up["b"], up["head"], hist]
+    err = check_silk(args, path["kw"], "silk-only step")
+    t = silk_times(args, path["kw"])
+    print_silk_times(t, f"rows={args[0].shape[0]} silk-only step", where)
+    return {"max_abs_err": err, "times": t}
+
+
+def load_ms_group(group: str, sessions: int) -> tuple[list, list, list]:
+    """(layout [channels, streams, coupled, mapping...], steps[p][i],
+    libopus's final ranges ranges[p][i]) of one group of the committed
+    multistream fixture, read with numpy alone: session i of the batch
+    replays fixture session i % (the group's sessions)."""
+    data = np.load(MS_FIXTURE, allow_pickle=False)
+    blob, lengths = data[f"{group}_packets"].tobytes(), data[f"{group}_lengths"]
+    ends = np.cumsum(lengths.ravel())
+    flat = [blob[e - n : e] for e, n in zip(ends, lengths.ravel())]
+    k, n_p = lengths.shape
+    ranges = data[f"{group}_ranges"]
+    steps = [[flat[(i % k) * n_p + p] for i in range(sessions)] for p in range(n_p)]
+    want = [[int(ranges[i % k, p]) for i in range(sessions)] for p in range(n_p)]
+    return data[f"{group}_layout"].tolist(), steps, want
+
+
+def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4) -> dict:
+    """Serve one multistream packet a session per call (`frames` core steps
+    of 20 ms each); keep sessions 0..keep-1's PCM, every session's final
+    ranges after each call and the post-filter activity of every core step
+    (CELT cores)."""
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+
+    core = bmd.core
+    pcm, ranges, chunks = [], [], []
+    for packets in steps:
+        out = bmd.serve([packets], FRAME)
+        if out.shape != (bmd.batch, FRAME, bmd.channels) or not np.isfinite(out).all():
+            raise AssertionError(f"multistream serve returned {out.shape} PCM or non-finite "
+                                 f"values")
+        pcm.append(out[:keep])
+        ranges.append(bmd.final_ranges())
+        if isinstance(core, BatchedCeltDecoder):
+            slots = core._plan_slots if core.transfer == "plan" else core._slots
+            for slot in slots[:frames]:
+                chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+                chunks.append(chunk if active else None)
+    return {"pcm": np.concatenate(pcm, axis=1), "ranges": ranges, "chunks": chunks}
+
+
+MS_PATHS = {  # path -> (fixture group, sessions, mode, transfer, frames a packet)
+    "multistream": ("ambi", MS_SESSIONS, "celt", "plan", 1),
+    "multistream-p10": ("ambi", MS_SESSIONS, "celt", "p10", 1),
+    "multistream-opus": ("silk", MS_CHECKED_SESSIONS, "opus", "p10", 1),
+    "multistream-40ms": ("c40", MS_CHECKED_SESSIONS, "celt", "plan", 2),
+}
+
+
+def ms_path(dev, name: str, where: str) -> dict:
+    """Serve the fixture's sessions through BatchedMultistreamDecoder with the
+    launch counts set to 0 just before and read just after.  Every
+    session's final range must equal libopus's after every packet.  On the
+    8-channel paths (multistream: plan, multistream-p10): no plan fallback,
+    the post-filter once a step with an active filter and the rotation
+    twice a plan step, no concealment, and sessions 0-3 within CPU_PCM_TOL
+    of the port's CPU run with equal ranges.  On the CELT paths the
+    post-filter, and on plan the rotation, are held to their plain versions
+    on the first step's recorded inputs (the elementary streams' shapes)."""
+    from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
+
+    group, sessions, mode, transfer, frames = MS_PATHS[name]
+    layout, steps, want_ranges = load_ms_group(group, sessions)
+    ch, streams, coupled, *mapping = layout
+
+    def make(n, device):
+        bmd = BatchedMultistreamDecoder(n, ch, streams, coupled, mapping, mode=mode,
+                                        device=device)
+        bmd.core.transfer = transfer
+        return bmd
+
+    bmd = make(sessions, dev)
+    counters = kernel_counters()
+    captured = {}
+    with recording_inputs(captured):
+        for fn in counters.values():
+            fn.launches = 0
+        got = ms_serve_steps(bmd, steps, frames)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    wrong = [p for p, (g, w) in enumerate(zip(got["ranges"], want_ranges)) if g != w]
+    fallbacks = getattr(bmd.core, "plan_fallbacks", 0)
+    print(f"main path {name}: {sessions} sessions x {streams} streams ({sessions * streams} "
+          f"elementary, {coupled} coupled a session), {mode} core on {transfer}, "
+          f"{len(steps)} packets x {frames} frames, post-filter chunks {got['chunks']}, plan "
+          f"fallbacks {fallbacks}, kernel launches {launches}; packets whose final ranges "
+          f"differ from libopus's: {wrong}")
+    if wrong or fallbacks:
+        raise AssertionError(f"{name}: final ranges differ from libopus's after packets "
+                             f"{wrong}, or {fallbacks} plan fallbacks")
+    real = None
+    if mode == "celt":
+        label = f"{name} step 1 ({sessions * streams} elementary streams)"
+        real = {"postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where, label)}
+        if transfer == "plan":
+            real["rotation"] = rotation_on_real_chains(captured["rotation"], where, label)
+    out = {"launches": launches, "chunks": [], "pf_chunks": got["chunks"], "pcm_err": None,
+           "real": real}
+    if group != "ambi":
+        return out
+    plc = check_launches(launches, got["chunks"], len(steps) if transfer == "plan" else 0,
+                         [], None)
+    if plc or launches["silk_synth"]:
+        raise AssertionError(f"{name}: kernel launches {launches}")
+    want = ms_serve_steps(make(4, "cpu"), [pk[:4] for pk in steps], frames)
+    err = float(np.abs(got["pcm"] - want["pcm"]).max())
+    ranges_equal = [r[:4] for r in got["ranges"]] == want["ranges"]
+    print(f"{name}: sessions 0-3 vs the port's CPU run: max_abs_err={err}, final ranges equal "
+          f"{ranges_equal}")
+    if not (err < CPU_PCM_TOL and ranges_equal):
+        raise AssertionError(f"{name}: sessions 0-3 off the CPU run ({err}) or ranges differ")
+    out["pcm_err"] = err
+    return out
+
+
+def ms_rate(dev, name: str, where: str) -> float:
+    """The multistream serve rate as the reference benchmark defines it
+    (steps x sessions x 0.02 / s): median of 5 runs of every fixture step
+    after a warm-up run, beside the elementary-stream rate."""
+    from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
+
+    group, sessions, mode, transfer, _ = MS_PATHS[name]
+    (ch, streams, coupled, *mapping), steps, _ = load_ms_group(group, sessions)
+    bmd = BatchedMultistreamDecoder(sessions, ch, streams, coupled, mapping, mode=mode,
+                                    device=dev)
+    bmd.core.transfer = transfer
+    bmd.serve(steps, FRAME)  # warm-up
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        bmd.serve(steps, FRAME)
+        runs.append(time.perf_counter() - t0)
+    if getattr(bmd.core, "plan_fallbacks", 0):
+        raise AssertionError(f"{name} steps fell back while timing")
+    rates = sorted(len(steps) * sessions * 0.02 / r for r in runs)
+    rate = statistics.median(rates)
+    print(f"serve e2e {name} sessions={sessions} ({sessions * streams} elementary streams) "
+          f"{len(steps)} steps/run: sessions_audio_s_per_s median={rate} runs={rates}; "
+          f"elementary_audio_s_per_s median={rate * streams} ({where})")
+    return rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1400,46 +1812,83 @@ def main() -> int:
 
     import opus_tpu_torch  # noqa: F401  (sets full-fp32 matmuls)
 
-    build()
-    pf = postfilter_phase(dev, where)
-    rot = rotation_phase(dev, where)
-    plc = plc_phase(dev, where)
+    start = time.perf_counter()
+    walls = {}
+
+    def timed(name: str, fn, *args):
+        """fn(*args), its wall time kept under `name` and printed."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        print(f"wall {name}: {walls[name]} s")
+        return out
+
+    timed("build", build)
+    pf = timed("postfilter phase", postfilter_phase, dev, where)
+    rot = timed("rotation phase", rotation_phase, dev, where)
+    plc = timed("plc phase", plc_phase, dev, where)
+    silk = timed("silk_synth phase", silk_phase, dev, where)
 
     clean = make_payloads()
     lossy = with_losses(clean)
     plan_lossy = with_plan_losses(clean)
     mixed = make_mixed_payloads(clean)
     mixed_lossy = with_mixed_losses(mixed)
-    paths = {"p10": main_path(dev, "p10", lossy, where),
-             "plan": main_path(dev, "plan", clean, where),
-             "plan-loss": main_path(dev, "plan-loss", plan_lossy, where),
-             "mixed": mixed_path(dev, "mixed", mixed, where),
-             "mixed-loss": mixed_path(dev, "mixed-loss", mixed_lossy, where),
-             "mixed-p10": mixed_path(dev, "mixed-p10", mixed_lossy[:MIXED_P10_STEPS], where)}
+    paths = {"p10": timed("p10", main_path, dev, "p10", lossy, where),
+             "plan": timed("plan", main_path, dev, "plan", clean, where),
+             "plan-loss": timed("plan-loss", main_path, dev, "plan-loss", plan_lossy, where),
+             "mixed": timed("mixed", mixed_path, dev, "mixed", mixed, where),
+             "mixed-loss": timed("mixed-loss", mixed_path, dev, "mixed-loss", mixed_lossy, where),
+             "mixed-p10": timed("mixed-p10", mixed_path, dev, "mixed-p10",
+                                mixed_lossy[:MIXED_P10_STEPS], where)}
     switch = with_switches(mixed)
-    paths["mixed-switch"] = mixed_path(dev, "mixed-switch", switch, where)
-    paths["mixed-switch-p10"] = mixed_path(dev, "mixed-switch-p10", switch, where)
-    paths.update(pipelined_phase(dev, clean, mixed, where))
+    paths["mixed-switch"] = timed("mixed-switch", mixed_path, dev, "mixed-switch", switch, where)
+    paths["mixed-switch-p10"] = timed("mixed-switch-p10", mixed_path, dev, "mixed-switch-p10",
+                                      switch, where)
+    paths.update(timed("run_pipelined", pipelined_phase, dev, clean, mixed, where))
+    paths["silk-only"] = timed("silk-only", silk_path, dev, "silk-only", 16, B, SILK_STEPS, where)
+    paths["silk-only-nb"] = timed("silk-only-nb", silk_path, dev, "silk-only-nb", 8, SILK_NB_B,
+                                  SILK_NB_STEPS, where)
+    silk_real = timed("silk_synth on silk-only inputs", silk_on_real_inputs, paths["silk-only"],
+                      dev, where)
+    for name in MS_PATHS:
+        paths[name] = timed(name, ms_path, dev, name, where)
     plan = paths["plan"]
 
-    rate_p10 = serve_rate(dev, "p10", lossy, where)
-    rate_plan = serve_rate(dev, "plan", clean, where)
-    rate_loss = serve_rate(dev, "plan", plan_lossy, where, "plan-loss")
+    rate_p10 = timed("rate p10", serve_rate, dev, "p10", lossy, where)
+    rate_plan = timed("rate plan", serve_rate, dev, "plan", clean, where)
+    rate_loss = timed("rate plan-loss", serve_rate, dev, "plan", plan_lossy, where, "plan-loss")
     p10_device(dev, lossy, where)
     plan_device(dev, clean, where)
     print(f"serve e2e summary B={B}: p10={rate_p10} plan={rate_plan} plan-loss={rate_loss} "
           f"audio_s_per_s, plan fallbacks 0 ({where})")
-    rate_mixed = mixed_rate(dev, mixed, "plan", "internal", where, "mixed")
-    rate_mixed_loss = mixed_rate(dev, mixed_lossy, "plan", "internal", where, "mixed-loss")
+    rate_mixed = timed("rate mixed", mixed_rate, dev, mixed, "plan", "internal", where, "mixed")
+    rate_mixed_loss = timed("rate mixed-loss", mixed_rate, dev, mixed_lossy, "plan", "internal",
+                            where, "mixed-loss")
     mixed_device(dev, mixed, where)
-    rate_switch = switch_rate(dev, switch, where)
+    rate_switch = timed("rate mixed-switch", switch_rate, dev, switch, where)
     print(f"serve e2e mixed summary B={B} (plan, internal SILK): mixed={rate_mixed} "
           f"mixed-loss={rate_mixed_loss} mixed-switch={rate_switch} audio_s_per_s, plan "
           f"fallbacks 0 ({where})")
+    rate_ms = {name: timed(f"rate {name}", ms_rate, dev, name, where)
+               for name in ("multistream", "multistream-p10")}
+    silk_only = paths["silk-only"]
+    print(f"serve e2e slice summary: silk-only B={B} WB audio_s_per_s={silk_only['rate']} "
+          f"(host front end {silk_only['host_ms']} ms/step, device {silk_only['dev_ms']} "
+          f"ms/step); multistream {MS_SESSIONS} sessions sessions_audio_s_per_s plan="
+          f"{rate_ms['multistream']} p10={rate_ms['multistream-p10']} ({where})")
+    print("wall by phase (s): " + json.dumps({k: round(v, 1) for k, v in walls.items()})
+          + f"; total {time.perf_counter() - start} s")
 
     def launches(kernel):
         by_path = {k: v["launches"][kernel] for k, v in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def real_errs(kernel):
+        """The kernel's max abs error against its plain version on each
+        path's recorded inputs."""
+        return {k: v["real"][kernel]["max_abs_err"] for k, v in paths.items()
+                if v.get("real") and kernel in v["real"]}
 
     chunks = [c for p in paths.values() for c in p["chunks"] if c]
     main_chunk = max(set(chunks), key=chunks.count)
@@ -1462,11 +1911,13 @@ def main() -> int:
     k = min(r for r, _ in plc_real["pitch"])
     pt_t, pt_c = plc_real["pitch"][k, 310], plc_real["pitch"][k, 155]
     ls_t = plc_real["synth"][min(plc_real["synth"])]
+    # silk_synth at the silk-only path's first voiced step (B=1024, WB)
+    silk_t = silk_real["times"]
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
          "replaces": "opus_tpu/dsp/pallas_pf.py:89", **launches("postfilter"),
-         "max_abs_err": max(pf["max_abs_err"], pf_real["max_abs_err"],
-                            paths["mixed"]["real"]["postfilter"]["max_abs_err"]),
+         "max_abs_err": max(pf["max_abs_err"], *real_errs("postfilter").values()),
+         "max_abs_err_real_by_path": real_errs("postfilter"),
          "ms": pf_t["ms"], "plain_ms": pf_t["plain_ms"],
          "bound_ms": pf_bound, "bound_by": pf_by, "library_ms": None,
          "shape": f"B={B} C={C} lm=3 chunk={main_chunk}",
@@ -1476,8 +1927,8 @@ def main() -> int:
          "plain_ms_real": pf_real["times"]["plain_ms"], "bound_ms_real": pf_bound_real},
         {"name": "rotation", "route": "cuda", "source": "opus_tpu_torch/csrc/rotation.cu",
          "replaces": "opus_tpu/dsp/pallas_rot.py:46", **launches("rotation"),
-         "max_abs_err": max(rot["max_abs_err"], rot_real["max_abs_err"],
-                            paths["mixed"]["real"]["rotation"]["max_abs_err"]),
+         "max_abs_err": max(rot["max_abs_err"], *real_errs("rotation").values()),
+         "max_abs_err_real_by_path": real_errs("rotation"),
          "ms": rot["times"]["ms"], "plain_ms": rot["times"]["plain_ms"],
          "bound_ms": rot_bound, "bound_by": rot_by, "library_ms": None,
          "shape": f"B={B} n2={n2}",
@@ -1513,6 +1964,19 @@ def main() -> int:
          "kernel_ms": ls_t["kernel_ms"], "ms_syn_rows_2048": plc["synth"]["ms"],
          "kernel_ms_syn_rows_2048": plc["synth"]["kernel_ms"],
          "plain_ms_syn_rows_2048": plc["synth"]["plain_ms"]},
+        {"name": "silk_synth", "route": "cuda", "source": "opus_tpu_torch/csrc/silk.cu",
+         "replaces": "opus_tpu/dsp/silk_synthesis.py:64", **launches("silk_synth"),
+         "replaces_also": "opus_tpu/dsp/silk_synthesis.py:33",
+         "max_abs_err": max(silk["max_abs_err"], silk_real["max_abs_err"]),
+         "max_abs_err_vs": "the plain version (int16 LSBs)",
+         "ms": silk_t["ms"], "plain_ms": silk_t["plain_ms"],
+         "bound_ms": silk_t["bound_ms"], "bound_by": silk_t["bound_by"], "library_ms": None,
+         "shape": f"rows={B} 16 kHz order=16 chunk=20 L=320 (silk-only step)",
+         "bound_note": f"max(bytes needed {silk_t['bytes']} (of {silk_t['bytes_whole_args']} "
+                       f"in the arguments) at 3.35 TB/s = {silk_t['bytes_ms']} ms, LPC chain "
+                       f"320 samples x 4 cycles at 1.98 GHz = {silk_t['chain_ms']} ms)",
+         "kernel_ms": silk_t["kernel_ms"], "ms_syn": silk["times"]["ms"],
+         "kernel_ms_syn": silk["times"]["kernel_ms"], "plain_ms_syn": silk["times"]["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,6 +89,8 @@ def library() -> ctypes.CDLL:
     lib.opus_pitch_track.argtypes = [p, ll, p, ll, ll, i, i, i, p, p, p]
     lib.opus_lpc_synth.restype = i
     lib.opus_lpc_synth.argtypes = [p, p, p, p, i, i, p]
+    lib.opus_silk_synth.restype = i
+    lib.opus_silk_synth.argtypes = [p] * 10 + [i] * 6 + [p]
     return lib
 
 

@@ -254,12 +254,17 @@ class BatchedOpusDecoder(ServingSlots):
 
     def decode_frames(self, packets: list) -> np.ndarray:
         """One step: decode one frame per stream -> pcm [B, frame48, C]."""
+        return self.decode_frames_on_device(packets).cpu().numpy()
+
+    def decode_frames_on_device(self, packets: list) -> torch.Tensor:
+        """decode_frames with the pcm on the device."""
         frame48, slot = self._frames_plane_a(packets)
         if frame48 > 960:
             # 40/60 ms packets are SILK-only; no CELT step is needed.
             silk = slot["silk"][:, : frame48 * self.channels]
-            return silk.reshape(self.batch, frame48, self.channels).astype(np.float32) / 32768.0
-        return self._dispatch(frame48, slot).cpu().numpy()
+            pcm = silk.reshape(self.batch, frame48, self.channels).astype(np.float32) / 32768.0
+            return torch.from_numpy(pcm).to(self.device)
+        return self._dispatch(frame48, slot)
 
     def run_pipelined(self, batches: list):
         """Decode a sequence of steps, one step in flight (see

@@ -213,8 +213,13 @@ class BatchedCeltDecoder(ServingSlots):
     def decode_frames(self, packets: list, frame_size: int,
                       stream_channels=None) -> np.ndarray:
         """Full pipeline step: plane A then device synthesis; pcm [B, frame, C]."""
+        return self.decode_frames_on_device(packets, frame_size, stream_channels).cpu().numpy()
+
+    def decode_frames_on_device(self, packets: list, frame_size: int,
+                                stream_channels=None) -> torch.Tensor:
+        """decode_frames with the pcm left on the device."""
         lm, short_mask, args = self._raw_args(frame_size, packets, stream_channels)
-        return self._dispatch(lm, short_mask, args).cpu().numpy()
+        return self._dispatch(lm, short_mask, args)
 
     def run_pipelined(self, batches: list, frame_size: int):
         """Decode a sequence of steps with the state carried across them,

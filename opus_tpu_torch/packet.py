@@ -1,10 +1,13 @@
-"""The ToC layer the mixed serving loop needs (RFC 6716 sec. 3).
+"""The ToC layer the serving loops need (RFC 6716 sec. 3).
 
-A copy of what `BatchedOpusDecoder._toc_arrays` reads from
-opus_tpu/packet.py and opus_tpu/types.py: the bandwidth and codec-mode
-codes, the ToC queries and the framing parse.  It is copied because the
-port imports nothing of opus_tpu; tests/test_torch_opus.py holds it to the
-reference on real and fuzzed packets.
+A copy of what `BatchedOpusDecoder._toc_arrays` and the multistream
+splitter read from opus_tpu/packet.py and opus_tpu/types.py: the
+bandwidth and codec-mode codes, the ToC queries and the framing parse,
+with the self-delimited form that every elementary stream of a
+multistream packet but the last uses (RFC 6716 appendix B).  It is copied
+because the port imports nothing of opus_tpu; tests/test_torch_opus.py
+and tests/test_torch_multistream.py hold it to the reference on real and
+fuzzed packets.
 """
 
 from __future__ import annotations
@@ -103,28 +106,42 @@ class ParsedPacket:
     def frame_count(self) -> int:
         return len(self.frame_sizes)
 
+    def frames(self, packet: bytes) -> list[bytes]:
+        """The frame payloads, sliced from the packet buffer."""
+        return [packet[off : off + size]
+                for off, size in zip(self.frame_offsets, self.frame_sizes)]
 
-def parse_packet(packet: bytes) -> ParsedPacket:
-    """Split an Opus packet into frames: codes 0-3, CBR/VBR and padding
-    (RFC 6716 sec. 3.2; the self-delimited form is not needed here)."""
+
+def parse_packet(packet: bytes, self_delimited: bool = False) -> ParsedPacket:
+    """Split an Opus packet into frames: codes 0-3, CBR/VBR, padding and,
+    with `self_delimited`, the explicit last-frame length of the
+    self-delimited form (RFC 6716 sec. 3.2, appendix B); `packet_offset`
+    is where the next packet starts.  Raises InvalidPacket on malformed
+    input."""
     if not packet:
         raise InvalidPacket("empty packet")
+
     framesize = query_packet_samples_per_frame(packet, 48000)
     toc = packet[0]
     code = toc & 0x3
     offset = 1
     length = len(packet) - 1
     pad = 0
+    cbr = False
     sizes: list[int] = []
+
     if code == 0:
         count = 1
         last_size = length
     elif code == 1:
         count = 2
-        if length & 0x1:
-            raise InvalidPacket("odd length for two CBR frames")
-        last_size = length // 2
-        sizes.append(last_size)
+        cbr = True
+        last_size = length
+        if not self_delimited:
+            if length & 0x1:
+                raise InvalidPacket("odd length for two CBR frames")
+            last_size = length // 2
+            sizes.append(last_size)
     elif code == 2:
         count = 2
         size0, consumed = _parse_size(packet[offset:])
@@ -135,6 +152,7 @@ def parse_packet(packet: bytes) -> ParsedPacket:
         sizes.append(size0)
         last_size = length - size0
     else:
+        # Code 3: arbitrary frame count with optional padding and VBR sizes.
         if length < 1:
             raise InvalidPacket("code-3 packet without count byte")
         ch = packet[offset]
@@ -143,7 +161,9 @@ def parse_packet(packet: bytes) -> ParsedPacket:
         count = ch & 0x3F
         if count < 1 or framesize * count > MAX_PACKET_SAMPLES_48K:
             raise InvalidPacket("invalid code-3 frame count")
-        if ch & 0x40:  # padding, run-length coded with 255-chaining
+
+        if ch & 0x40:
+            # Padding: run-length encoded with 255-chaining.
             p = 255
             while p == 255:
                 if length <= 0:
@@ -156,7 +176,9 @@ def parse_packet(packet: bytes) -> ParsedPacket:
                 pad += this_pad
             if length < 0:
                 raise InvalidPacket("padding exceeds packet")
-        if ch & 0x80:  # VBR
+
+        cbr = not (ch & 0x80)
+        if not cbr:
             last_size = length
             for _ in range(count - 1):
                 size_i, consumed = _parse_size(packet[offset:])
@@ -167,18 +189,44 @@ def parse_packet(packet: bytes) -> ParsedPacket:
                 sizes.append(size_i)
                 last_size -= consumed + size_i
         else:
-            last_size, rem = divmod(length, count)
-            if rem:
-                raise InvalidPacket("CBR payload not divisible by frame count")
-            sizes.extend([last_size] * (count - 1))
-    if last_size > MAX_FRAME_BYTES:
-        raise InvalidPacket("frame larger than 1275 bytes")
-    sizes.append(last_size)
+            last_size = length
+            if not self_delimited:
+                last_size, rem = divmod(length, count)
+                if rem:
+                    raise InvalidPacket("CBR payload not divisible by frame count")
+                sizes.extend([last_size] * (count - 1))
+
+    if self_delimited:
+        final_size, consumed = _parse_size(packet[offset:])
+        length -= consumed
+        if final_size > length:
+            raise InvalidPacket("self-delimited size exceeds packet")
+        offset += consumed
+        if cbr:
+            if final_size * count > length:
+                raise InvalidPacket("self-delimited CBR frames exceed packet")
+            sizes = [final_size] * count
+        else:
+            if consumed + final_size > last_size:
+                raise InvalidPacket("self-delimited final frame exceeds packet")
+            sizes.append(final_size)
+    else:
+        # The implicit last-frame size may exceed the 1275-byte cap.
+        if last_size > MAX_FRAME_BYTES:
+            raise InvalidPacket("frame larger than 1275 bytes")
+        sizes.append(last_size)
+
+    assert len(sizes) == count
     payload_offset = offset
     frame_offsets = []
     for size in sizes:
         frame_offsets.append(offset)
         offset += size
-    return ParsedPacket(toc=toc, frame_offsets=tuple(frame_offsets),
-                        frame_sizes=tuple(sizes), payload_offset=payload_offset,
-                        packet_offset=pad + offset)
+
+    return ParsedPacket(
+        toc=toc,
+        frame_offsets=tuple(frame_offsets),
+        frame_sizes=tuple(sizes),
+        payload_offset=payload_offset,
+        packet_offset=pad + offset,
+    )

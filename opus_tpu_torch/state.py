@@ -1,8 +1,11 @@
-"""Carry a synthesis state between numpy and the port.
+"""Carry a decoder state between numpy and the port.
 
 The tests start the reference and the port from one state: the reference's
 SynthState is fetched with np.asarray, handed to `synth_state_from_numpy`,
-and the port's state comes back through `synth_state_to_numpy`.
+and the port's state comes back through `synth_state_to_numpy`; the SILK
+batch decoder's state (its LPC history on the device and each front end's
+output history on the host) goes in through `load_silk_state` and comes
+back through `silk_state_to_numpy`.
 """
 
 from __future__ import annotations
@@ -32,3 +35,19 @@ def synth_state_to_numpy(state: SynthState) -> tuple[np.ndarray, ...]:
     when the state carries one."""
     leaves = (state.mem, state.preemph, state.silk_hist)
     return tuple(t.cpu().numpy() for t in leaves if t is not None)
+
+
+def load_silk_state(dec, lpc_hist, out_bufs) -> None:
+    """Set a BatchedSilkDecoder's carried state: lpc_hist [B, order] (a
+    copy lands on the decoder's device) and each front end's out_buf, the
+    int16-scale output history its next frame reads."""
+    dec.lpc_hist = torch.tensor(np.asarray(lpc_hist, np.float32), device=dec.device)
+    for front, buf in zip(dec.fronts, out_bufs, strict=True):
+        front.st.out_buf[:] = [int(v) for v in buf]
+
+
+def silk_state_to_numpy(dec) -> tuple[np.ndarray, np.ndarray]:
+    """A BatchedSilkDecoder's carried state on the host: (lpc_hist [B,
+    order] float32, out_buf [B, ltp_mem_length] int64)."""
+    return (dec.lpc_hist.cpu().numpy(),
+            np.array([front.st.out_buf for front in dec.fronts], np.int64))

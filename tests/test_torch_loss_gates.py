@@ -17,6 +17,14 @@ on the CPU.
   flagged), so it is held to 1e-3 from its first loss on (the device
   conceal's gate, tests/test_torch_opus.py).
 
+* Random-byte payloads through the port's BatchedCeltDecoder decode or
+  raise ValueError, never crash or hang (the port of
+  tests/test_native.py:277), through decode_frames and through serve()
+  with losses on the p10 and plan transfers.
+* The packed mixed path's device pitch conceal under isolated, double and
+  6-frame burst losses holds the reference's conformance gate against the
+  scalar CELT decoder (the port of tests/test_mixed_plan.py:416).
+
 Packets come from libopus (the reference's oracle encoders).
 """
 
@@ -167,3 +175,77 @@ def test_all_streams_lost_step_serve(transfer):
     assert port.final_ranges() == ref.final_ranges()
     np.testing.assert_array_equal(port._serve_plc_pitch.numpy(),
                                   np.asarray(ref._serve_plc_pitch))
+
+
+@pytest.mark.parametrize("transfer", ["p10", "plan"])
+def test_batch_fuzz_robustness(transfer):
+    """tests/test_native.py:277 through the port's BatchedCeltDecoder:
+    random-byte payloads through decode_frames, and through serve() with
+    interleaved losses on the p10 and plan transfers: each step decodes
+    (the range coder saturates on corrupt data, as libopus's does) or
+    raises ValueError, never crashes or hangs; what decodes is finite."""
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+
+    rng = np.random.default_rng(0)
+    B = 4
+    d = BatchedCeltDecoder(B, 2, transfer=transfer, device="cpu")
+    decoded = served = 0
+    for _ in range(40):
+        n = int(rng.integers(2, 200))
+        payloads = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for _ in range(B)]
+        try:
+            pcm = d.decode_frames(payloads, F)
+        except ValueError:
+            continue
+        assert np.isfinite(pcm).all()
+        decoded += 1
+    for _ in range(8):
+        n = int(rng.integers(2, 100))
+        payloads = [None if rng.random() < 0.3
+                    else bytes(rng.integers(0, 256, n, dtype=np.uint8)) for _ in range(B)]
+        try:
+            d.serve([payloads], F)
+        except ValueError:
+            continue
+        assert bool(np.isfinite(d._serve_ring.numpy()).all())
+        served += 1
+    assert decoded > 0 and served > 0
+
+
+def test_packed_fallback_pitch_plc_tracks_scalar():
+    """tests/test_mixed_plan.py:416 through the port's BatchedOpusDecoder
+    on the packed (p10) transfer: CELT losses, isolated, double and a
+    6-frame burst (the pitch regime, then the noise regime), concealed on
+    the device, against the scalar CeltDecoder under the same losses at
+    the conformance gate (the device conceals in f32, the scalar decoder
+    in f64, so near-tie pitch candidates may differ)."""
+    from opus_tpu import parse_packet
+    from opus_tpu.celt.decoder import CeltDecoder
+    from opus_tpu.conformance import PASS_QUALITY, compare
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+
+    oracle = _oracle()
+    nf, B = 16, 2
+    rng = np.random.default_rng(5)
+    t = np.arange(F * nf) / 48000.0
+    ph = np.cumsum(2 * np.pi * (160 + 8 * np.sin(2 * np.pi * 1.5 * t)) / 48000.0)
+    sig = (0.5 * np.sin(ph) + 0.25 * np.sin(2 * ph) + 0.1 * np.sin(3 * ph)
+           + 0.01 * rng.standard_normal(t.size))
+    pcm = np.stack([sig, np.roll(sig, 11) * 0.9], -1).astype(np.float32)
+    enc = oracle.Encoder(48000, 2)
+    enc.ctl(oracle.SET_BITRATE, 96000)
+    enc.ctl(oracle.SET_FORCE_MODE, oracle.MODE_CELT_ONLY)
+    pkts = [enc.encode_float(pcm[i * F : (i + 1) * F].ravel(), F) for i in range(nf)]
+    lose = {3, 6, 7} | set(range(9, 15))
+    scal = CeltDecoder(2, 1)
+    pays = [p[parse_packet(p).payload_offset :] for p in pkts]
+    ref = np.concatenate([scal.decode(None if i in lose else pays[i], F) for i in range(nf)])
+    dec = BatchedOpusDecoder(B, 2, transfer="p10", device="cpu")
+    outs = []
+    for i in range(nf):
+        dec.serve([[None if i in lose else pkts[i]] * B])
+        outs.append(dec._serve_ring.numpy().copy())
+    ours = np.stack(outs, 1).reshape(B, nf * F, 2)
+    assert np.isfinite(ours).all()
+    for b in range(B):
+        assert compare(ref, ours[b]) >= PASS_QUALITY

@@ -32,6 +32,13 @@ rest), and a profile of the first mixed step
 and of the first mixed-loss step that conceals, with the device time of
 the SILK resampler's products (`_silk_resample`, under a profiler range).
 
+The slice's paths (chip_smoke.py's traffic) get a breakdown too: the
+multistream serve loop, 256 8-channel sessions on plan and on p10 (the
+elementary packets' split, plane A, the step issue, the channel
+un-mapping with its fetch, the rest), and the SILK-only decoder at
+B=1024 WB (the host front end, the device step: upload and silk_synth,
+the rest), each with the device's busy and idle share.
+
 The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
 CUDA device; exits non-zero without one.
 """
@@ -49,7 +56,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 #: The symbols of the kernels in opus_tpu_torch/csrc/.
-KERNELS = ("postfilter_kernel", "rot_pass_kernel", "pitch_track_kernel", "lpc_synth_kernel")
+KERNELS = ("postfilter_kernel", "rot_pass_kernel", "pitch_track_kernel", "lpc_synth_kernel",
+           "silk_synth_kernel")
 #: Profiler ranges put around functions of the port while profiling.
 RANGES = ("silk_resample",)
 
@@ -136,6 +144,27 @@ def profile(name, step_fn, steps: int, where: str, out) -> float:
     return kernels
 
 
+def _timed(fn, spent: dict, key: str):
+    """fn, with its host seconds added to spent[key] on every call."""
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[key] += time.perf_counter() - t0
+    return run
+
+
+def _busy_run(run) -> tuple[float, float]:
+    """(wall s, device busy s) of run() under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    return wall, sum(_device_us(e) for e in _kernels(prof.key_averages())) / 1e6
+
+
 def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
     """Where a serve() run's wall time goes, per step: plane A (the native
     decode), the serving step's issue on the host, and the rest (upload,
@@ -148,33 +177,17 @@ def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
     dec = BatchedCeltDecoder(cs.B, cs.C, transfer=transfer, device=torch.device("cuda"))
     dec.serve(batches, cs.FRAME)  # warm-up
     spent = {"plane A": 0.0, "step issue": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[key] += time.perf_counter() - t0
-        return run
-
     decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
-    setattr(dec.native, decode, timed(getattr(dec.native, decode), "plane A"))
+    setattr(dec.native, decode, _timed(getattr(dec.native, decode), spent, "plane A"))
     for key in list(dec._steps):
-        dec._steps[key] = timed(dec._steps[key], "step issue")
+        dec._steps[key] = _timed(dec._steps[key], spent, "step issue")
     t0 = time.perf_counter()
     dec.serve(batches, cs.FRAME)
     wall = time.perf_counter() - t0
     n = len(batches)
     timed_run = dict(spent)  # the profiled run below adds to the live counters
     rest = wall - sum(timed_run.values())
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        dec.serve(batches, cs.FRAME)
-        wall_prof = time.perf_counter() - t0
-    cuda = _kernels(prof.key_averages())
-    busy = sum(_device_us(e) for e in cuda) / 1e6
+    wall_prof, busy = _busy_run(lambda: dec.serve(batches, cs.FRAME))
     print(f"serve {name or transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
           f"plane_A={timed_run['plane A'] / n * 1e3} "
           f"step_issue={timed_run['step issue'] / n * 1e3} "
@@ -197,23 +210,14 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
     dec.serve(batches)  # warm-up
     spent = {"plane A": 0.0, "ToC parse": 0.0, "step issue": 0.0, "shadow": 0.0,
              "crossfade": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[key] += time.perf_counter() - t0
-        return run
-
-    dec.native.decode_batch_plan_into = timed(dec.native.decode_batch_plan_into, "plane A")
-    dec._toc_arrays = timed(dec._toc_arrays, "ToC parse")
-    dec._collect_corrections = timed(dec._collect_corrections, "shadow")
+    dec.native.decode_batch_plan_into = _timed(dec.native.decode_batch_plan_into, spent,
+                                               "plane A")
+    dec._toc_arrays = _timed(dec._toc_arrays, spent, "ToC parse")
+    dec._collect_corrections = _timed(dec._collect_corrections, spent, "shadow")
     for key in list(dec._steps):
-        dec._steps[key] = timed(dec._steps[key], "step issue")
+        dec._steps[key] = _timed(dec._steps[key], spent, "step issue")
     real_apply = opus_pipeline.apply_corrections
-    opus_pipeline.apply_corrections = timed(real_apply, "crossfade")
+    opus_pipeline.apply_corrections = _timed(real_apply, spent, "crossfade")
     try:
         t0 = time.perf_counter()
         dec.serve(batches)
@@ -222,13 +226,7 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
         opus_pipeline.apply_corrections = real_apply
     n = len(batches)
     run = dict(spent)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        dec.serve(batches)
-        wall_prof = time.perf_counter() - t0
-    cuda = _kernels(prof.key_averages())
-    busy = sum(_device_us(e) for e in cuda) / 1e6
+    wall_prof, busy = _busy_run(lambda: dec.serve(batches))
     print(f"serve {name} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
           f"plane_A={run['plane A'] / n * 1e3} toc_parse={run['ToC parse'] / n * 1e3} "
           f"step_issue={run['step issue'] / n * 1e3} shadow={run['shadow'] / n * 1e3} "
@@ -236,6 +234,72 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
           f"rest={(wall - sum(run.values())) / n * 1e3}; under the profiler: wall ms/step="
           f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} "
           f"device_idle_share={1 - busy / wall_prof} fallbacks={dec.plan_fallbacks} ({where})")
+
+
+def multistream_breakdown(name: str, where: str) -> None:
+    """Where a multistream serve() run's wall time goes, per step (chip_smoke
+    MS_PATHS[name], every fixture step): the split of each session's packet
+    into elementary payloads, plane A, the serving step's issue, the
+    un-mapping gather and its fetch, and the rest; the device busy share."""
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
+
+    group, sessions, mode, transfer, _ = cs.MS_PATHS[name]
+    (ch, streams, coupled, *mapping), steps, _ = cs.load_ms_group(group, sessions)
+    bmd = BatchedMultistreamDecoder(sessions, ch, streams, coupled, mapping, mode=mode,
+                                    device=torch.device("cuda"))
+    bmd.core.transfer = transfer
+    bmd.serve(steps, cs.FRAME)  # warm-up
+    core = bmd.core
+    spent = dict.fromkeys(("split", "plane A", "step issue", "unmap"), 0.0)
+    bmd._split_batch = _timed(bmd._split_batch, spent, "split")
+    bmd._unmap = _timed(bmd._unmap, spent, "unmap")
+    decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
+    setattr(core.native, decode, _timed(getattr(core.native, decode), spent, "plane A"))
+    for key in list(core._steps):
+        core._steps[key] = _timed(core._steps[key], spent, "step issue")
+    t0 = time.perf_counter()
+    bmd.serve(steps, cs.FRAME)
+    wall = time.perf_counter() - t0
+    n = len(steps)
+    parts = {k: v / n * 1e3 for k, v in spent.items()}
+    wall_prof, busy = _busy_run(lambda: bmd.serve(steps, cs.FRAME))
+    print(f"serve {name} breakdown {sessions} sessions ({sessions * streams} elementary), {n} "
+          f"steps: wall ms/step={wall / n * 1e3} "
+          + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in parts.items())
+          + f" rest={wall / n * 1e3 - sum(parts.values())}; under the profiler: wall ms/step="
+          f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} device_idle_share="
+          f"{1 - busy / wall_prof} ({where})")
+
+
+def silk_breakdown(steps: int, where: str) -> None:
+    """Where a SILK-only decode_frames step's wall time goes at B=1024 WB
+    (chip_smoke.py's payloads): the host front end (planes), the device
+    step (synthesize: the uploads and the silk_synth launch) and the rest
+    (the fetch and the feedback of the output); the device busy share."""
+    import chip_smoke as cs
+
+    from opus_tpu_torch.batch.silk_pipeline import BatchedSilkDecoder
+
+    batches = cs.make_silk_payloads(cs.B, 16, steps)
+    dec = BatchedSilkDecoder(cs.B, 16, device=torch.device("cuda"))
+    dec.decode_frames(batches[0])  # warm-up
+    spent = dict.fromkeys(("front end", "device step"), 0.0)
+    dec.planes = _timed(dec.planes, spent, "front end")
+    dec.synthesize = _timed(dec.synthesize, spent, "device step")
+    t0 = time.perf_counter()
+    for payloads in batches[1:]:
+        dec.decode_frames(payloads)
+    wall = time.perf_counter() - t0
+    n = len(batches) - 1
+    parts = {k: v / n * 1e3 for k, v in spent.items()}
+    wall_prof, busy = _busy_run(lambda: dec.decode_frames(batches[-1]))
+    print(f"silk-only breakdown B={cs.B} WB, {n} steps: wall ms/step={wall / n * 1e3} "
+          + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in parts.items())
+          + f" rest={wall / n * 1e3 - sum(parts.values())}; under the profiler, one step: wall "
+          f"ms={wall_prof * 1e3} device_busy ms={busy * 1e3} device_idle_share="
+          f"{1 - busy / wall_prof} ({where})")
 
 
 def mixed_steps(batches, lossy, steps: int, where: str, out) -> None:
@@ -311,6 +375,9 @@ def main() -> int:
     mixed_breakdown(mixed, where, "mixed")
     mixed_breakdown(mixed_lossy, where, "mixed-loss")
     mixed_breakdown(cs.with_switches(mixed), where, "mixed-switch")
+    multistream_breakdown("multistream", where)
+    multistream_breakdown("multistream-p10", where)
+    silk_breakdown(4, where)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with open(ROOT / "chiprun_out" / "torch_profile.txt", "w") as out:
         for transfer in ("p10", "plan"):
