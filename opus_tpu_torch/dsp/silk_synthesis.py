@@ -23,9 +23,11 @@ The plain version fixes every rounding: each product and sum is one
 float32 operation, the LTP taps summed from j = 0 up, the LPC prediction
 from the newest sample's tap up (a[0] x[t-1] first) and added to P[t]
 last.  That is the order in which XLA:CPU evaluates the reference at the
-test suite's optimisation level, and the kernel rounds each operation the
-same way (no fused multiply-add), so kernel, plain version and reference
-agree bit for bit where their inputs do.
+test suite's optimisation level, so the plain version equals the JAX
+step bit for bit.  The kernel's LTP rounds the same way, but its LPC is
+a chunked recurrence (`lpc_chunks` gives its layout: the history carried
+across chunks in double), which rounds otherwise: it is held to a
+float64 run of the plain version, not to the plain version's bits.
 """
 
 from __future__ import annotations
@@ -35,6 +37,21 @@ import torch
 LTP_ORDER = 5
 LPC_ORDERS = (10, 16)
 MAX_CHUNK = 32  # the kernel's LTP chunk is one warp wide
+WARP = 32  # the kernel's LPC runs one chunk a lane
+
+
+def lpc_chunks(subfr_len: int, nb_subfr: int, order: int) -> tuple[int, int]:
+    """(samples a chunk, chunks a frame) of the kernel's chunked LPC: the
+    shortest divisor of subfr_len at least `order` long that cuts the
+    frame into at most 32 chunks, so that chunks meet at every subframe
+    boundary (the a1/a2 half boundary among them) and each chunk's last
+    `order` samples are its own.  ValueError where there is none."""
+    for n in range(order, subfr_len + 1):
+        if subfr_len % n == 0 and nb_subfr * (subfr_len // n) <= WARP:
+            return n, nb_subfr * (subfr_len // n)
+    raise ValueError(f"no LPC chunk layout for subfr_len={subfr_len}, nb_subfr={nb_subfr}, "
+                     f"order={order}: the kernel needs a divisor of subfr_len of at least "
+                     f"the order that gives at most {WARP} chunks")
 
 
 def _ltp_chunked(gexc, b_taps, lag, head, chunk: int):
@@ -150,7 +167,8 @@ def silk_synthesis_step(gexc, a1, a2, voiced, lags, b_taps, head, lpc_hist, *,
     b_taps [B, nb_subfr, 5] f32; head [B, H] f32, the rewhitened LTP
     history; lpc_hist [B, order] f32 (lpc_hist[:, -1] the newest sample);
     all contiguous on one device.  A CUDA tensor goes through the kernel
-    (each launch adds one to `silk_synthesis_step.launches`); a CPU tensor
+    (each launch adds one to `silk_synthesis_step.launches`; ValueError
+    past 6 subframes or where `lpc_chunks` finds no layout); a CPU tensor
     through `_silk_synth_ref`."""
     _check(gexc, a1, a2, voiced, lags, b_taps, head, lpc_hist, subfr_len, nb_subfr, chunk)
     kw = dict(subfr_len=subfr_len, nb_subfr=nb_subfr, chunk=chunk)
@@ -158,6 +176,10 @@ def silk_synthesis_step(gexc, a1, a2, voiced, lags, b_taps, head, lpc_hist, *,
         return _silk_synth_ref(gexc, a1, a2, voiced, lags, b_taps, head, lpc_hist, **kw)
     if gexc.device.type != "cuda":
         raise ValueError(f"silk_synthesis_step runs on cpu or cuda, not {gexc.device}")
+    if nb_subfr * LTP_ORDER > WARP:
+        raise ValueError(f"the kernel takes at most {WARP // LTP_ORDER} subframes (a lane per "
+                         f"LTP tap of the frame), got {nb_subfr}")
+    lpc_chunks(subfr_len, nb_subfr, a1.shape[1])  # raises where the kernel has no layout
     from .. import _build
 
     xq = torch.empty_like(gexc)
