@@ -4,7 +4,8 @@
 
 Builds plane A (g++: the CELT, SILK and Opus engines) and the CUDA
 kernels (nvcc, sm_90a; post-filter, spreading rotation, the two scans
-of the loss concealment and the SILK synthesis) from the sources in the
+of the loss concealment, the SILK synthesis and the encoder's PVQ
+search) from the sources in the
 checkout, in parallel,
 and holds each kernel to its plain torch version at the serving shapes
 (the scans also on ties at pitch_track's lane edges, y contiguous and at
@@ -110,6 +111,25 @@ libopus's after every packet.
   packets (4 channels, 3 streams), two serving steps a packet; checked,
   not timed.
 
+The encode plane (BatchedPlanEncoder): its kernel pvq_search (csrc/pvq.cu,
+the greedy PVQ search of every leaf, one warp a leaf) must equal its plain
+version exactly, iy and left, on synthetic leaves (`pvq_inputs`: n = 1, 2,
+3, 176, K below and above n / 2, zero, tiny and large sums, ties, K = 200,
+mid/side and intensity bands, clamped planes and offsets; stereo and
+mono), then:
+
+* encode: B=1024 stereo at 96 kbps (240-byte packets), 4 steps of
+  seeded music-like PCM (`music_pcm`; the last stream silent), the first a
+  warm-up: one pvq_search launch a step; every step's packets served (ToC
+  stripped) by BatchedCeltDecoder(transfer="plan"), whose 1024 final ranges
+  must equal the encoder's; streams 0-3 decoded by the port's scalar
+  CeltDecoder (equal final ranges) and within 0.5 dB SNR of the port's CPU
+  run at B=4; the kernel held to its plain version on all 1024 x 160 rows
+  of the first step's recorded inputs.  Prints the encode rate end to end,
+  the host ms a step (plan, emit, fallback), the device plane (analyze +
+  search on resident inputs, CUDA events), the iy download, and the
+  kernel's times (wrapper, bare, CUDA-graph replay, plain) with its bound.
+
 Every phase's wall time and the total are printed.
 
 Each kernel is timed three ways, on the synthetic inputs and on the
@@ -196,6 +216,15 @@ SILK_PATH_STREAMS, SILK_DRIFT_FACTOR, SILK_DRIFT_FLOOR = 32, 1.5, (1.0, 0.05)
 # session i of the batch replays fixture session i % (sessions in the group).
 MS_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "multistream_traffic.npz"
 MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
+# The encode plane: BatchedPlanEncoder at B stereo 96 kbps (240-byte packets),
+# ENC_STEPS steps of music_pcm, the first a warm-up; streams 0-3 against the
+# port's CPU run.  The leaf table's shape is the encoder's (P_MAX, N_MAX,
+# T_MAX).  A trip of pvq_search's greedy loop is at least an add, a square, a
+# division and the argmax's log2(176) = 8 compare levels, each 4 cycles of
+# dependent latency: PVQ_TRIP_CYCLES, for the chain bound.
+ENC_STEPS, ENC_CPU_STREAMS, ENC_SNR_TOL_DB = 4, 4, 0.5
+ENC_P_MAX, ENC_N_MAX, ENC_T_MAX = 160, 176, 128
+PVQ_TRIP_CYCLES = 4 * (3 + 8 + 1)
 
 
 def card() -> str:
@@ -1460,14 +1489,15 @@ def mixed_device(dev, batches, where: str) -> None:
 
 
 def kernel_counters() -> dict:
-    """The five kernel wrappers by kernel name; each counts its launches."""
+    """The six kernel wrappers by kernel name; each counts its launches."""
     from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
     from opus_tpu_torch.dsp.postfilter import postfilter
+    from opus_tpu_torch.dsp.pvq_search import pvq_search
     from opus_tpu_torch.dsp.rotation import rot_pass
     from opus_tpu_torch.dsp.silk_synthesis import silk_synthesis_step
 
     return {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step}
+            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step, "pvq_search": pvq_search}
 
 
 def silk_inputs(fs_khz: int, chunk: int, order: int, rows: int, seed: int, dev):
@@ -1905,6 +1935,274 @@ def ms_rate(dev, name: str, where: str) -> float:
     return rate
 
 
+def pvq_inputs(seed: int, batch: int, channels: int, dev):
+    """Synthetic pvq_search inputs at the encode plane's shapes (N2 = 960,
+    P = 160 leaf rows a stream): random spans, band ops and leaves (planes
+    -1..2 and offsets past both ends, which the gather clamps; rows 140-159
+    unused, n = 0, with garbage), and in streams 0-7 the edge cases: n = 1,
+    2, 3, 176 with K below and above n / 2 (stream 0); all-zero spans (1);
+    spans whose sum |x| is below 1e-15 (2) or at least 64 (3), where the
+    prefill collapses |x| to e1; equal |x| everywhere, ties (4); K = 200 on
+    n = 176, one leaf's prefill leaving 148 pulses, so that 128 trips leave
+    20 unplaced (5); every band mid/side (6) or an intensity mix (7).
+    Returns [x, band_ops, leaves] on `dev`."""
+    rng = np.random.default_rng(seed)
+    n2, P = 960, ENC_P_MAX
+    x = (rng.standard_normal((batch, channels, n2)) * 0.1).astype(np.float32)
+    ops = np.zeros((batch, 21, 4), np.float32)
+    ops[:, :, 0] = rng.integers(0, 4, (batch, 21))
+    th = rng.uniform(0, np.pi / 2, (batch, 21))
+    ops[:, :, 1] = np.cos(th)
+    ops[:, :, 2] = np.sin(th) * rng.choice([-1.0, 1.0], (batch, 21))
+    n = rng.integers(1, 177, (batch, P))
+    lv = np.stack([rng.integers(-1, 3, (batch, P)), rng.integers(-8, n2, (batch, P)), n,
+                   np.minimum(128, 1 + (rng.uniform(0, 1.5, (batch, P)) * n).astype(int))],
+                  -1).astype(np.int32)
+    lv[:, 140:, 2] = 0
+
+    def put(b, leaves):
+        lv[b, : len(leaves)] = leaves
+
+    sizes = [(1, 1), (1, 3), (2, 1), (2, 2), (2, 5), (3, 1), (3, 2), (3, 7), (176, 40),
+             (176, 88), (176, 89), (176, 128)]
+    put(0, [(p, 200 + 7 * i, nn, k) for i, (nn, k) in enumerate(sizes) for p in (0, 1)])
+    x[1, :, :300] = 0.0
+    put(1, [(p, o, nn, k) for p in (0, 1) for o, nn, k in
+            ((0, 176, 100), (5, 176, 30), (60, 64, 40), (100, 7, 1), (120, 2, 2))])
+    x[2, :, 300:600] = rng.standard_normal((channels, 300)) * 3e-18
+    put(2, [(p, 300 + o, nn, k) for p in (0, 1) for o, nn, k in
+            ((0, 176, 100), (10, 64, 40), (40, 176, 20), (90, 16, 3))])
+    x[3, :, 600:] = rng.uniform(0.5, 1.0, (channels, 360)) * rng.choice([-1.0, 1.0],
+                                                                          (channels, 360))
+    put(3, [(p, 600 + o, nn, k) for p in (0, 1) for o, nn, k in
+            ((0, 176, 100), (100, 100, 60), (180, 176, 128), (20, 100, 30))])
+    x[4] = 0.25 * rng.choice([-1.0, 1.0], (channels, n2))
+    ops[5, :, 0] = 0.0
+    span = np.full(176, 0.99 * 10.0 / 200.8)  # sum 10: rcp * |x| = 0.99 or 2.0115
+    span[rng.permutation(176)[:26]] = 2.0115 * 10.0 / 200.8
+    x[5, 0, :176] = span * rng.choice([-1.0, 1.0], 176)
+    put(5, [(0, 0, 176, 200), (0, 200, 176, 200), (1, 400, 176, 200), (1, 0, 176, 128)])
+    ops[6, :, 0] = 2.0
+    ops[7, :, 0] = 3.0
+    return [torch.tensor(a, device=dev) for a in (x, ops, lv)]
+
+
+def check_pvq(x, ops, leaves, label: str) -> dict:
+    """pvq_search vs its plain version: iy and left equal, every row.
+    Returns the rows, the trips the leaves need and the unplaced pulses."""
+    from opus_tpu_torch.dsp.pvq_search import _prefill, _pvq_search_ref, pvq_search
+
+    iy, left = pvq_search(x, ops, leaves)
+    want_iy, want_left = _pvq_search_ref(x, ops, leaves)
+    trips = _prefill(x, ops, leaves, 3, ENC_N_MAX)[4].clamp(0, ENC_T_MAX)
+    torch.cuda.synchronize()
+    diff = int((iy != want_iy).any(-1).sum()) + int((left != want_left).sum())
+    valid = int((leaves[..., 2] > 0).sum())
+    out = {"rows": leaves.shape[0] * leaves.shape[1], "valid": valid,
+           "max_trips": int(trips.max()), "trips": int(trips.sum()),
+           "unplaced": int(left.sum()), "pulses": int(iy.abs().sum())}
+    print(f"kernel pvq_search {label}: x {tuple(x.shape)}, {out['rows']} rows ({valid} leaves), "
+          f"{out['pulses']} pulses, trips needed {out['trips']} (longest {out['max_trips']}), "
+          f"unplaced after {ENC_T_MAX} trips {out['unplaced']}; rows differing from the plain "
+          f"version: {diff}")
+    if diff:
+        raise AssertionError(f"pvq_search differs from its plain version on {diff} rows "
+                             f"({label})")
+    return out
+
+
+def pvq_phase(dev, where: str) -> None:
+    """pvq_search vs its plain version on the synthetic leaves, stereo and
+    mono."""
+    stereo = check_pvq(*pvq_inputs(60, 64, 2, dev), "synthetic stereo")
+    if stereo["unplaced"] == 0:
+        raise AssertionError("the synthetic leaves left no pulse unplaced")
+    check_pvq(*pvq_inputs(61, 64, 1, dev), "synthetic mono")
+
+
+def music_pcm(batch: int, steps: int, seed: int = 9) -> np.ndarray:
+    """[steps, batch, 960, 2] float32 music-like PCM: stream i a tone of
+    220 Hz x 2^((i % 24) / 12) and a 3 kHz partial with noise, the right
+    channel 13 samples late (the reference's encode benchmark's signal,
+    tools/tpu_encbench.py, with one tone a stream), scaled to 0.5-1.0 of
+    full amplitude across the batch; the last stream all zero."""
+    rng = np.random.default_rng(seed)
+    f0 = 220.0 * 2.0 ** ((np.arange(batch) % 24) / 12.0)
+    t = np.arange(steps * FRAME + 13) / 48000.0
+    sig = (0.4 * np.sin(2 * np.pi * f0[:, None] * t + rng.uniform(0, 2 * np.pi, (batch, 1)))
+           + 0.2 * np.sin(2 * np.pi * 3000.0 * t)
+           + 0.05 * rng.standard_normal((batch, t.size)))
+    sig *= (0.5 + 0.5 * np.arange(batch) / batch)[:, None]
+    sig[-1] = 0.0
+    pcm = np.stack([sig[:, 13:], sig[:, :-13]], -1).astype(np.float32)
+    return pcm.reshape(batch, steps, FRAME, 2).transpose(1, 0, 2, 3)
+
+
+def best_snr(decoded: np.ndarray, ref: np.ndarray) -> float:
+    """SNR (dB) of the decoded channel mean against the input's, at the
+    best delay of 0-399 samples, after the first frame."""
+    r = ref.mean(-1).astype(np.float64)
+    g = decoded.mean(-1).astype(np.float64)
+    n = len(r) - 400
+    best = -1e9
+    for lag in range(400):
+        e = r[FRAME:n] - g[FRAME + lag : n + lag]
+        best = max(best, 10 * np.log10((r[FRAME:n] ** 2).sum() / max((e ** 2).sum(), 1e-12)))
+    return best
+
+
+def pvq_bytes(x, ops, leaves) -> int:
+    """Bytes pvq_search must move for these inputs: the positions of x its
+    leaves cover (every channel plane), the band ops of the streams with a
+    leaf, the leaf table, and the padded iy and left written."""
+    B, C, n2 = x.shape
+    lv = leaves.cpu().numpy().astype(np.int64)
+    b, p = np.nonzero(lv[..., 2] > 0)
+    off, n = lv[b, p, 1], lv[b, p, 2]
+    cover = np.zeros((B, n2 + 1), np.int64)  # +1 at a span's start, -1 past its end
+    np.add.at(cover, (b, np.clip(off, 0, n2)), 1)
+    np.add.at(cover, (b, np.clip(off + n, 0, n2)), -1)
+    covered = int((np.cumsum(cover, axis=1)[:, :n2] > 0).sum())
+    streams = len(np.unique(b))
+    return (covered * C * 4 + streams * 21 * 16 + lv.size * 4
+            + lv.shape[0] * lv.shape[1] * (ENC_N_MAX + 1) * 4)
+
+
+def pvq_times(x, ops, leaves, need: dict) -> dict:
+    """ms of the wrapper, the bare kernel launch on C arguments prepared in
+    advance (also as one replay of a CUDA graph) and the plain version,
+    with the bound: the bytes these inputs need (pvq_bytes) over the HBM
+    rate, or the longest leaf's trips (need["max_trips"]) at PVQ_TRIP_CYCLES
+    each, whichever is larger.  Two output copies (230 MB) alternate."""
+    from opus_tpu_torch import _build
+    from opus_tpu_torch.dsp import pvq_search as pq
+
+    B, P = leaves.shape[:2]
+    outs = [(torch.empty((B, P, ENC_N_MAX), dtype=torch.int32, device=x.device),
+             torch.empty((B, P), dtype=torch.int32, device=x.device)) for _ in range(2)]
+    prepared = [pq._kernel_args(x, ops, leaves, iy, left, 3, ENC_N_MAX, ENC_T_MAX)
+                for iy, left in outs]
+    nbytes = pvq_bytes(x, ops, leaves)
+    bound, by = chain_bound_ms(nbytes, need["max_trips"] * PVQ_TRIP_CYCLES)
+    return {"ms": best_ms(lambda: pq.pvq_search(x, ops, leaves), 10),
+            "kernel_ms": best_ms(bare("opus_pvq_search", prepared), 10),
+            "graph_ms": graph_ms(_build.library().opus_pvq_search, prepared, 10),
+            "plain_ms": cuda_ms(lambda: pq._pvq_search_ref(x, ops, leaves), 1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "chain_ms": need["max_trips"] * PVQ_TRIP_CYCLES / CLOCK_HZ * 1e3}
+
+
+def encode_path(dev, where: str) -> dict:
+    """The encode plane's main path: BatchedPlanEncoder(B, 2, 96000) on the
+    card for ENC_STEPS steps of music_pcm (the first a warm-up), with the
+    launch counts set to 0 just before and read just after: one pvq_search
+    launch a step.  Every packet must be 240 bytes; each step's packets are
+    served (ToC stripped) by the port's BatchedCeltDecoder(B, 2,
+    transfer="plan"), whose final ranges must all equal the encoder's;
+    streams 0-3 are decoded by the port's scalar CeltDecoder (equal final
+    ranges) and their SNR against the input must lie within ENC_SNR_TOL_DB
+    of the port's CPU run of the same PCM at B=4.  The search's inputs of
+    the first step are recorded: the kernel must equal its plain version on
+    all B x 160 rows.  Prints the rate end to end (host clock around
+    encode_step, median of the timed steps), the host ms a step by phase,
+    the device plane (analyze + search on resident inputs, CUDA events), the
+    iy download and the kernel's times and bound."""
+    from opus_tpu_torch.batch.encode_pipeline import BatchedPlanEncoder
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.celt.decoder import CeltDecoder
+
+    pcm = music_pcm(B, ENC_STEPS)
+    enc = BatchedPlanEncoder(B, C, 96000, device=dev)
+    dec = BatchedCeltDecoder(B, C, transfer="plan", device=dev)
+    rec = {}
+    real_search = enc._srch
+
+    def search(x, ops, leaves):
+        if not rec:
+            rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone())
+        return real_search(x, ops, leaves)
+
+    enc._srch = search
+    counters = kernel_counters()
+    walls, phases, packets = [], [], []
+    for fn in counters.values():
+        fn.launches = 0
+    for step in pcm:
+        t0 = time.perf_counter()
+        pk = enc.encode_step(step)
+        walls.append(time.perf_counter() - t0)
+        phases.append(enc.step_ms)
+        ranges = enc.final_ranges()
+        sizes = {len(p) for p in pk}
+        if sizes != {NBYTES}:
+            raise AssertionError(f"encode: packet sizes {sizes}, not {NBYTES} bytes")
+        dec.serve([[p[1:] for p in pk]], FRAME)
+        got = dec.final_ranges()
+        wrong = [i for i in range(B) if got[i] != ranges[i]]
+        if wrong:
+            raise AssertionError(f"encode step {len(packets)}: {len(wrong)} decoder final ranges "
+                                 f"differ from the encoder's (streams {wrong[:8]})")
+        packets.append(pk)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"main path encode: B={B} stereo 96 kbps, {ENC_STEPS} steps, every packet {NBYTES} "
+          f"B, all {B} plan-decoder final ranges equal to the encoder's on every step "
+          f"(decoder plan fallbacks {dec.plan_fallbacks}), kernel launches {launches}, host "
+          f"fallback streams by step {[p['fallback_streams'] for p in phases]}")
+    if launches["pvq_search"] != ENC_STEPS:
+        raise AssertionError(f"encode: pvq_search launched {launches['pvq_search']} times over "
+                             f"{ENC_STEPS} steps")
+
+    cpu = BatchedPlanEncoder(ENC_CPU_STREAMS, C, 96000, device="cpu")
+    cpu_packets = [cpu.encode_step(step[:ENC_CPU_STREAMS]) for step in pcm]
+    snr = []
+    for i in range(ENC_CPU_STREAMS):
+        out = {}
+        for name, pks in (("card", [p[i] for p in packets]), ("cpu", [p[i] for p in cpu_packets])):
+            d = CeltDecoder(C)
+            out[name] = np.concatenate([d.decode(p[1:], FRAME) for p in pks])
+            if name == "card" and d.final_range != enc.final_ranges()[i]:
+                raise AssertionError(f"encode stream {i}: the scalar decoder's final range "
+                                     f"differs from the encoder's")
+        ref = pcm[:, i].reshape(-1, C)
+        s_card, s_cpu = best_snr(out["card"], ref), best_snr(out["cpu"], ref)
+        same = sum(a[i] == b[i] for a, b in zip(packets, cpu_packets))
+        print(f"encode stream {i}: scalar decoder final range equal; SNR card {s_card} dB, CPU "
+              f"run {s_cpu} dB; packets equal to the CPU run's on {same} of {ENC_STEPS} steps")
+        if not abs(s_card - s_cpu) <= ENC_SNR_TOL_DB:
+            raise AssertionError(f"encode stream {i}: SNR {s_card} dB vs the CPU run's {s_cpu}")
+        snr.append(s_card)
+
+    real = check_pvq(rec["x"], rec["ops"], rec["leaves"], f"recorded encode step 0 (B={B})")
+    timed = walls[1:]
+    rate = B * FRAME / 48000.0 / statistics.median(timed)
+    host = {k: statistics.median(p[k] for p in phases[1:])
+            for k in ("plan", "emit", "fallback", "analyze_and_download",
+                      "search_and_iy_download")}
+    print(f"encode e2e B={B} stereo 96 kbps: audio_s_per_s median={rate} over steps 1-"
+          f"{ENC_STEPS - 1} (s a step {timed}); host ms a step (median): {host} ({where})")
+
+    pcm_d = torch.from_numpy(np.ascontiguousarray(pcm[1])).to(dev)
+    im, pm = enc._in_mem.clone(), enc._pm.clone()
+    x, ops, leaves = rec["x"], rec["ops"], rec["leaves"]
+    dev_ms = cuda_ms(lambda: real_search(enc._ana(pcm_d, im, pm)[0], ops, leaves), 10)
+    iy = real_search(x, ops, leaves)[0]
+    pinned = torch.empty(iy.shape, dtype=iy.dtype, pin_memory=True)
+    iy_ms = cuda_ms(lambda: pinned.copy_(iy, non_blocking=True), 10)
+    t = pvq_times(x, ops, leaves, real)
+    print(f"encode device plane B={B}: analyze + search on resident inputs {dev_ms} ms a step "
+          f"(CUDA events) = {B * 0.02 / dev_ms * 1e3} audio_s_per_s; iy download "
+          f"({iy.numel() * 4} B into pinned memory, one copy) {iy_ms} ms ({where})")
+    print(f"time pvq_search recorded step (B={B}, 160 rows a stream): wrapper_ms={t['ms']} "
+          f"kernel_alone_ms={t['kernel_ms']} cuda_graph_ms_per_launch={t['graph_ms']} "
+          f"plain_ms={t['plain_ms']} bound_ms={t['bound_ms']} ({t['bound_by']}; bytes needed "
+          f"{t['bytes']} -> {t['bytes_ms']} ms; longest leaf {real['max_trips']} trips x "
+          f"{PVQ_TRIP_CYCLES} cycles -> {t['chain_ms']} ms) share_of_bound="
+          f"{t['bound_ms'] / t['kernel_ms']} ({where})")
+    return {"launches": launches, "chunks": [], "rate": rate, "host_ms": host,
+            "dev_ms": dev_ms, "iy_ms": iy_ms, "times": t, "real": real, "snr": snr}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1958,6 +2256,8 @@ def main() -> int:
                       dev, where)
     for name in MS_PATHS:
         paths[name] = timed(name, ms_path, dev, name, where)
+    timed("pvq_search phase", pvq_phase, dev, where)
+    paths["encode"] = timed("encode", encode_path, dev, where)
     plan = paths["plan"]
 
     rate_p10 = timed("rate p10", serve_rate, dev, "p10", lossy, where)
@@ -1982,6 +2282,12 @@ def main() -> int:
           f"(host front end {silk_only['host_ms']} ms/step, device {silk_only['dev_ms']} "
           f"ms/step); multistream {MS_SESSIONS} sessions sessions_audio_s_per_s plan="
           f"{rate_ms['multistream']} p10={rate_ms['multistream-p10']} ({where})")
+    encode = paths["encode"]
+    print(f"encode e2e slice summary: B={B} stereo 96 kbps audio_s_per_s={encode['rate']} "
+          f"(host ms a step: plan {encode['host_ms']['plan']}, emit {encode['host_ms']['emit']}, "
+          f"fallback {encode['host_ms']['fallback']}); device plane {encode['dev_ms']} ms a step "
+          f"= {B * 0.02 / encode['dev_ms'] * 1e3} audio_s_per_s; iy download {encode['iy_ms']} "
+          f"ms ({where})")
     print("wall by phase (s): " + json.dumps({k: round(v, 1) for k, v in walls.items()})
           + f"; total {time.perf_counter() - start} s")
 
@@ -2018,6 +2324,7 @@ def main() -> int:
     ls_t = plc_real["synth"][min(plc_real["synth"])]
     # silk_synth at the silk-only path's first voiced step (B=1024, WB)
     silk_t = silk_real["times"]
+    pvq_t = encode["times"]  # pvq_search on the encode path's first step
     print(json.dumps({"kernels": [
         {"name": "postfilter", "route": "cuda", "source": "opus_tpu_torch/csrc/postfilter.cu",
          "replaces": "opus_tpu/dsp/pallas_pf.py:89", **launches("postfilter"),
@@ -2087,6 +2394,20 @@ def main() -> int:
          "kernel_ms": silk_t["kernel_ms"], "graph_ms": silk_t["graph_ms"],
          "ms_syn": silk["times"]["ms"], "kernel_ms_syn": silk["times"]["kernel_ms"],
          "graph_ms_syn": silk["times"]["graph_ms"], "plain_ms_syn": silk["times"]["plain_ms"]},
+        {"name": "pvq_search", "route": "cuda", "source": "opus_tpu_torch/csrc/pvq.cu",
+         "replaces": "opus_tpu/dsp/encode_exec.py:265", **launches("pvq_search"),
+         "max_abs_err": 0,
+         "max_abs_err_vs": "the plain version (pulses; iy and left must be equal)",
+         "ms": pvq_t["ms"], "plain_ms": pvq_t["plain_ms"],
+         "bound_ms": pvq_t["bound_ms"], "bound_by": pvq_t["bound_by"], "library_ms": None,
+         "shape": f"B={B} P={ENC_P_MAX} N_MAX={ENC_N_MAX} t_max={ENC_T_MAX} (encode step 0: "
+                  f"{encode['real']['valid']} leaves, longest {encode['real']['max_trips']} "
+                  f"trips)",
+         "bound_note": f"max(bytes needed {pvq_t['bytes']} (x at the positions the leaves "
+                       f"cover, band ops, leaf table, the padded iy and left written) at 3.35 "
+                       f"TB/s = {pvq_t['bytes_ms']} ms, the longest leaf's {encode['real']['max_trips']} "
+                       f"trips x {PVQ_TRIP_CYCLES} cycles at 1.98 GHz = {pvq_t['chain_ms']} ms)",
+         "kernel_ms": pvq_t["kernel_ms"], "graph_ms": pvq_t["graph_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,6 +91,8 @@ def library() -> ctypes.CDLL:
     lib.opus_lpc_synth.argtypes = [p, p, p, p, i, i, p]
     lib.opus_silk_synth.restype = i
     lib.opus_silk_synth.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.opus_pvq_search.restype = i
+    lib.opus_pvq_search.argtypes = [p] * 5 + [i] * 7 + [p]
     return lib
 
 
