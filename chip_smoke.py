@@ -111,6 +111,33 @@ libopus's after every packet.
   packets (4 channels, 3 streams), two serving steps a packet; checked,
   not timed.
 
+multichip: the plan, mixed and multistream paths split over a world of
+torch.cuda.device_count() NCCL ranks, one process a card (rank r on
+cuda:r; opus_tpu_torch.mesh.run_ranks, spawned; a failed rank, a failed
+NCCL start or the deadline fails the run, with no fallback to gloo or the
+CPU): each rank serves its contiguous block of the batch through the
+ordinary decoders at B/world streams, with its own plane A, and the
+whole batch's view is gathered by batch/sharded.py:
+
+* multichip-plan: BatchedCeltDecoder, transfer="plan", the 13 clean steps
+  at B=1024;
+* multichip-mixed: BatchedOpusDecoder, plan and internal SILK, the 13
+  mixed steps;
+* multichip-multistream: BatchedMultistreamDecoder, the 256 8-channel
+  sessions of the multistream path, whole sessions a rank, un-mapped on
+  their rank and gathered (gather_sessions).
+
+Each rank's launch counts (set to 0 just before its path, read just
+after) must show the post-filter on every step with an active filter and
+2 rotations a plan step, and nothing else; the gathered ring must be
+within 1e-5 of the unsharded path's ring of this run, every final range
+equal and no rank's plan fallen back.  Prints each path's sharded rate
+(3 runs, each timed on every rank and read at the slowest), the world
+size, each rank's plane-A ms a step and its gather ms.  Then the port's
+dryrun_multichip(world, device="cuda") runs its three
+phases (synthetic CELT + SILK + regroup, the real bitstream, the mixed
+plan serve) on the card.
+
 The encode plane (BatchedPlanEncoder): its kernel pvq_search (csrc/pvq.cu,
 the greedy PVQ search of every leaf, one warp a leaf) must equal its plain
 version exactly, iy and left, on synthetic leaves (`pvq_inputs`: n = 1, 2,
@@ -225,6 +252,11 @@ MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
 ENC_STEPS, ENC_CPU_STREAMS, ENC_SNR_TOL_DB = 4, 4, 0.5
 ENC_P_MAX, ENC_N_MAX, ENC_T_MAX = 160, 176, 128
 PVQ_TRIP_CYCLES = 4 * (3 + 8 + 1)
+# The multichip phase: the plan, mixed and multistream paths split over
+# torch.cuda.device_count() NCCL ranks; the gathered ring within the
+# reference's sharded allowance (tests/test_mesh_serve.py:81,190) of the
+# unsharded ring; MULTICHIP_RUNS timed runs a path.
+MULTICHIP_TOL, MULTICHIP_RUNS, MULTICHIP_DEADLINE_S = 1e-5, 3, 300
 
 
 def card() -> str:
@@ -1006,7 +1038,8 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     want = serve_steps(cpu, [pk[:4] for pk in batches])
     pcm_err = check_against_cpu(name, got, want, batches, 4, lambda i: name == "plan-loss")
     return {"launches": launches, "chunks": got["chunks"], "real": real,
-            "variants": variants, "pcm_err": pcm_err}
+            "variants": variants, "pcm_err": pcm_err,
+            "final_ring": dec._serve_ring.cpu().numpy(), "final_ranges": dec.final_ranges()}
 
 
 def serve_rate(dev, transfer: str, batches, where: str, name: str = "") -> float:
@@ -1236,7 +1269,8 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     pcm_err = check_against_cpu(name, got, want, cols, len(keep),
                                 lambda j: keep[j] % 3 == 0 and keep[j] % SWITCH_EVERY != 15)
     return {"launches": launches, "chunks": got["chunks"], "real": real, "variants": variants,
-            "pcm_err": pcm_err, "words": got["words"], "shadow": shadow["steps"]}
+            "pcm_err": pcm_err, "words": got["words"], "shadow": shadow["steps"],
+            "final_ring": dec._serve_ring.cpu().numpy(), "final_ranges": dec.final_ranges()}
 
 
 def load_switch_traffic() -> list:
@@ -1832,7 +1866,7 @@ def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4) -> dict:
             for slot in slots[:frames]:
                 chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
                 chunks.append(chunk if active else None)
-    return {"pcm": np.concatenate(pcm, axis=1), "ranges": ranges, "chunks": chunks}
+    return {"pcm": np.concatenate(pcm, axis=1), "ranges": ranges, "chunks": chunks, "last": out}
 
 
 MS_PATHS = {  # path -> (fixture group, sessions, mode, transfer, frames a packet)
@@ -1890,7 +1924,7 @@ def ms_path(dev, name: str, where: str) -> dict:
         if transfer == "plan":
             real["rotation"] = rotation_on_real_chains(captured["rotation"], where, label)
     out = {"launches": launches, "chunks": [], "pf_chunks": got["chunks"], "pcm_err": None,
-           "real": real}
+           "real": real, "final_ring": got["last"], "final_ranges": got["ranges"][-1]}
     if group != "ambi":
         return out
     plc = check_launches(launches, got["chunks"], len(steps) if transfer == "plan" else 0,
@@ -1933,6 +1967,153 @@ def ms_rate(dev, name: str, where: str) -> float:
           f"{len(steps)} steps/run: sessions_audio_s_per_s median={rate} runs={rates}; "
           f"elementary_audio_s_per_s median={rate * streams} ({where})")
     return rate
+
+
+def multichip_serve(steps: list, serve, gather, core) -> dict:
+    """One sharded path on this rank: its steps served one a call, with the
+    launch counts set to 0 just before and read just after, the plane-A
+    call (`core.native.decode_batch_plan_into`) timed, and each step's
+    post-filter activity read from the core's plan slot; then the gathered
+    ring (`gather()`), final ranges and fallbacks (collectives), the
+    gather's ms, and MULTICHIP_RUNS timed runs of every step in one call,
+    each started together on every rank.  `core` is the rank's CELT or
+    Opus decoder, or the core of its multistream decoder."""
+    import torch.distributed as dist
+
+    from opus_tpu_torch.batch.sharded import gather_fallbacks
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+
+    counters = kernel_counters()
+    plane_a, chunks = [], []
+    native = core.native
+    real = native.decode_batch_plan_into
+
+    def timed_plane_a(*args):
+        t0 = time.perf_counter()
+        try:
+            return real(*args)
+        finally:
+            plane_a.append(time.perf_counter() - t0)
+
+    native.decode_batch_plan_into = timed_plane_a
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        for packets in steps:
+            serve([packets])
+            s = core._plan_slots[0]
+            chunk, active = pf_chunk_for(s["meta"][:, 6:9], s["gains"])
+            chunks.append(chunk if active else None)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        del native.decode_batch_plan_into
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring, ranges = gather()
+    ring = ring.cpu().numpy()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    out = {"launches": launches, "chunks": chunks, "ring": ring,
+           "ranges": ranges, "fallbacks": gather_fallbacks(core),
+           "plane_a_ms": statistics.median(plane_a) * 1e3, "gather_ms": gather_ms, "walls": []}
+    for _ in range(MULTICHIP_RUNS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        serve(steps)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+    return out
+
+
+def multichip_rank(rank: int, world: int, dev, traffic: dict) -> dict:
+    """A rank of the multichip phase: its block of each path's batch served
+    by the ordinary decoders at spec.local streams with their own plane A,
+    gathered by batch/sharded.py; the launch gates held on this rank (the
+    post-filter on every step with an active filter, 2 rotations a plan
+    step, no other kernel).  Rank 0 keeps the gathered rings; the others
+    return their counts and times."""
+    from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.batch.sharded import gather_final_ranges, gather_ring, gather_sessions
+    from opus_tpu_torch.mesh import ShardSpec
+
+    spec = ShardSpec(B, world, rank)
+    celt = BatchedCeltDecoder(spec.local, C, transfer="plan", device=dev)
+    mixed = BatchedOpusDecoder(spec.local, C, transfer="plan", silk_transfer="internal",
+                               device=dev)
+    (ch, streams, coupled, *mapping), ms_steps = traffic["multistream"]
+    ms_spec = ShardSpec(MS_SESSIONS, world, rank)
+    ms = BatchedMultistreamDecoder(ms_spec.local, ch, streams, coupled, mapping, mode="celt",
+                                   device=dev)
+    ms.core.transfer = "plan"
+    out = {
+        "multichip-plan": multichip_serve(
+            [spec.rows(pk) for pk in traffic["plan"]], lambda steps: celt.serve(steps, FRAME),
+            lambda: (gather_ring(celt), gather_final_ranges(celt)), celt),
+        "multichip-mixed": multichip_serve(
+            [spec.rows(pk) for pk in traffic["mixed"]], mixed.serve,
+            lambda: (gather_ring(mixed), gather_final_ranges(mixed)), mixed),
+        "multichip-multistream": multichip_serve(
+            [ms_spec.rows(pk) for pk in ms_steps], lambda steps: ms.serve(steps, FRAME),
+            lambda: (gather_sessions(ms), gather_final_ranges(ms)), ms.core),
+    }
+    for name, path in out.items():
+        print(f"{name} rank {rank} of {world} on {dev}: kernel launches {path['launches']}, "
+              f"post-filter chunks {path['chunks']}, plane A ms/step median "
+              f"{path['plane_a_ms']}, gather ms {path['gather_ms']}, run walls (s) "
+              f"{path['walls']}", flush=True)
+        if path["fallbacks"] != [0] * world:
+            raise AssertionError(f"{name}: plan fallbacks by rank {path['fallbacks']}")
+        if check_launches(path["launches"], path["chunks"], len(path["chunks"]), [], None):
+            raise AssertionError(f"{name} rank {rank} concealed")
+        if path["launches"]["silk_synth"] or path["launches"]["pvq_search"]:
+            raise AssertionError(f"{name} rank {rank}: kernel launches {path['launches']}")
+        if rank:
+            del path["ring"]
+    return out
+
+
+def multichip_phase(dev, where: str, clean, mixed, paths: dict) -> dict:
+    """The sharded paths over every card of the machine: a world of
+    torch.cuda.device_count() NCCL ranks, rank r on cuda:r (mesh.run_ranks;
+    a failed rank, a failed NCCL start or the deadline raises).  Each
+    path's gathered ring must be within MULTICHIP_TOL of the unsharded
+    path's ring from this run, with equal final ranges and no plan
+    fallback on any rank.  Prints each path's rate with the world size and
+    each rank's plane-A ms a step; returns the paths with their launches
+    summed over the ranks."""
+    from opus_tpu_torch.mesh import run_ranks
+
+    world = torch.cuda.device_count()
+    layout, ms_steps, _ = load_ms_group("ambi", MS_SESSIONS)
+    traffic = {"plan": clean, "mixed": mixed, "multistream": (layout, ms_steps)}
+    print(f"multichip: world {world} (NCCL, rank r on cuda:r) ({where})", flush=True)
+    ranks = run_ranks(multichip_rank, world, device="cuda", args=(traffic,),
+                      deadline_s=MULTICHIP_DEADLINE_S)
+    out = {}
+    for name, base, steps in (("multichip-plan", "plan", len(clean)),
+                              ("multichip-mixed", "mixed", len(mixed)),
+                              ("multichip-multistream", "multistream", len(ms_steps))):
+        r0 = ranks[0][name]
+        err = float(np.abs(r0["ring"] - paths[base]["final_ring"]).max())
+        ranges_equal = r0["ranges"] == paths[base]["final_ranges"]
+        streams = MS_SESSIONS if base == "multistream" else B
+        runs = sorted(steps * streams * FRAME / 48000.0 / max(r[name]["walls"][i] for r in ranks)
+                      for i in range(MULTICHIP_RUNS))
+        rate = statistics.median(runs)
+        unit = "sessions_audio_s_per_s" if base == "multistream" else "audio_s_per_s"
+        print(f"serve e2e {name} world={world} B={streams} {steps} steps/run: {unit} median="
+              f"{rate} runs={runs}; plane A ms/step by rank "
+              f"{[r[name]['plane_a_ms'] for r in ranks]}; gather ms by rank "
+              f"{[r[name]['gather_ms'] for r in ranks]}; |gathered ring - unsharded {base} "
+              f"ring| max={err}; final ranges equal {ranges_equal}; plan fallbacks by rank "
+              f"{r0['fallbacks']} ({where})")
+        if not (err <= MULTICHIP_TOL and ranges_equal):
+            raise AssertionError(f"{name}: gathered ring {err} off the unsharded {base} ring, "
+                                 f"or final ranges differ")
+        launches = {k: sum(r[name]["launches"][k] for r in ranks) for k in r0["launches"]}
+        out[name] = {"launches": launches, "chunks": [], "rate": rate, "world": world}
+    return out
 
 
 def pvq_inputs(seed: int, batch: int, channels: int, dev):
@@ -2214,6 +2395,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     import opus_tpu_torch  # noqa: F401  (sets full-fp32 matmuls)
+    from opus_tpu_torch.dryrun import dryrun_multichip
 
     start = time.perf_counter()
     walls = {}
@@ -2256,6 +2438,9 @@ def main() -> int:
                       dev, where)
     for name in MS_PATHS:
         paths[name] = timed(name, ms_path, dev, name, where)
+    paths.update(timed("multichip", multichip_phase, dev, where, clean, mixed, paths))
+    world = paths["multichip-plan"]["world"]
+    timed("dryrun_multichip", lambda: dryrun_multichip(world, device="cuda"))
     timed("pvq_search phase", pvq_phase, dev, where)
     paths["encode"] = timed("encode", encode_path, dev, where)
     plan = paths["plan"]
@@ -2277,6 +2462,11 @@ def main() -> int:
           f"fallbacks 0 ({where})")
     rate_ms = {name: timed(f"rate {name}", ms_rate, dev, name, where)
                for name in ("multistream", "multistream-p10")}
+    print(f"serve e2e multichip summary world={world}: plan="
+          f"{paths['multichip-plan']['rate']} (unsharded {rate_plan}), mixed="
+          f"{paths['multichip-mixed']['rate']} (unsharded {rate_mixed}) audio_s_per_s; "
+          f"multistream={paths['multichip-multistream']['rate']} (unsharded "
+          f"{rate_ms['multistream']}) sessions_audio_s_per_s ({where})")
     silk_only = paths["silk-only"]
     print(f"serve e2e slice summary: silk-only B={B} WB audio_s_per_s={silk_only['rate']} "
           f"(host front end {silk_only['host_ms']} ms/step, device {silk_only['dev_ms']} "

@@ -101,14 +101,13 @@ class BatchedMultistreamDecoder:
                     raise ValueError("elementary streams disagree on frame count")
         return nf, per_session
 
-    def _unmap(self, pcm: torch.Tensor) -> np.ndarray:
-        """[B*S, n, 2] on the device -> numpy [B, n, channels]: one gather
-        of the mapped columns on the device, silent channels 0."""
+    def unmap_on_device(self, pcm: torch.Tensor) -> torch.Tensor:
+        """[B*S, n, 2] -> [B, n, channels] on the device: one gather of the
+        mapped columns, silent channels 0."""
         B, S = self.batch, self.streams
         n = pcm.shape[1]
         plane = pcm.reshape(B, S, n, 2).permute(0, 2, 1, 3).reshape(B, n, 2 * S)
-        out = plane.index_select(2, self._cols).masked_fill(self._silent, 0.0)
-        return out.cpu().numpy()
+        return plane.index_select(2, self._cols).masked_fill(self._silent, 0.0)
 
     def _step_payloads(self, per_session, f: int):
         """Elementary inputs for frame f of every (session, stream)."""
@@ -138,7 +137,7 @@ class BatchedMultistreamDecoder:
             else:
                 pcm = self.core.decode_frames_on_device(
                     payloads, frame_size, stream_channels=np.array(schs, np.int32))
-            outs.append(self._unmap(pcm))
+            outs.append(self.unmap_on_device(pcm).cpu().numpy())
         return np.concatenate(outs, axis=1) if nf > 1 else outs[0]
 
     def serve(self, batches: list[list[bytes]], frame_size: int) -> np.ndarray:
@@ -165,7 +164,7 @@ class BatchedMultistreamDecoder:
             self.core.serve(full_steps)
         else:
             self.core.serve(elem_steps, frame_size, stream_channels=schs)
-        return self._unmap(self.core._serve_ring)
+        return self.unmap_on_device(self.core._serve_ring).cpu().numpy()
 
     def final_ranges(self) -> list[int]:
         """Per-session XOR of elementary final ranges (opus multistream)."""
