@@ -157,6 +157,34 @@ mono), then:
   search on resident inputs, CUDA events), the iy download, and the
   kernel's times (wrapper, bare, CUDA-graph replay, plain) with its bound.
 
+library: the codec library (the port's scalar Decoder, MultistreamDecoder,
+Encoder, Ogg Opus and the CLI) on the card's host, after the multistream
+paths.  The plan, plan-loss, mixed and mixed-loss runs above also keep 31
+streams of the B=1024 batch (LIBRARY_ROWS: rows 0-3 and every 37th from
+37, with the rows 0-3 they keep anyway, one gather of the ring a step) and
+every step's final ranges; the multistream run keeps 8 sessions.  The
+same packets (the CELT payloads behind the CELT-only FB 20 ms stereo ToC)
+are decoded again by the port's Decoder at 48 kHz stereo, or its
+MultistreamDecoder, and on plan, mixed and multistream every sampled
+stream must have the scalar decoder's final range after every packet,
+PCM within 1e-3 (the reference's batched-vs-scalar gate,
+tests/test_mixed_plan.py:56) and an RFC 8251 score (conformance.compare)
+of at least 90 over its frames; on the loss paths the same numbers are
+printed, not gated.  Meanwhile two threads run `python3 -m opus_tpu_torch`
+encode, info and decode on a 4 s stereo music WAV (128 kbps VBR) and a 4
+s mono 16 kHz speech WAV (voice, 24 kbps): every command exits 0, the Ogg
+file reads back (each page's CRC) with the head written and the count
+`info` printed, an in-process Encoder of the same session writes the same
+packets on a native encoder and the port's Decoder reads each to the
+encoder's final range and to the decoded WAV's samples (the input's whole
+frames), and the music SNR after the 120-sample delay is above 15 dB
+(tests/test_encoder.py:63-80's floor at 128 kbps; the speech SNR is
+printed).  Then every Encoder session kind (music mono and stereo, voice
+mono and stereo, hybrid, FEC) must run on a native encoder with every
+final range equal to the Decoder's.  Prints the scalar decode ms a frame
+by kind, the encode ms a frame by kind, the CLI's walls, each path's worst
+error and lowest score; the phase launches no kernel.
+
 Every phase's wall time and the total are printed.
 
 Each kernel is timed three ways, on the synthetic inputs and on the
@@ -175,10 +203,13 @@ non-zero; without a CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -216,7 +247,8 @@ TOC_CELT, TOC_SILK, TOC_HYBRID = bytes([31 << 3 | 4]), bytes([9 << 3]), bytes([1
 LPC_PEAK_TOL = 1e-3  # lpc_synth (kernel and f32 plain) vs float64, of each row's peak
 # The switching traffic (tools/make_switch_traffic.py): stream i with
 # i % SWITCH_EVERY == 15 carries fixture sequence (i // SWITCH_EVERY) % 24.
-SWITCH_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "switch_traffic.npz"
+ROOT = pathlib.Path(__file__).resolve().parent
+SWITCH_FIXTURE = ROOT / "tests" / "data" / "switch_traffic.npz"
 SWITCH_EVERY = 16
 SWITCH_CPU_STREAMS = [0, 1, 2, 3, 4, 5, 15, 31, 47, 63]  # held to the CPU run
 PIPELINED_STEPS = 3
@@ -241,7 +273,7 @@ SILK_PLAIN_TOL, SILK_REAL_TOL = 1.0, 0.05
 SILK_PATH_STREAMS, SILK_DRIFT_FACTOR, SILK_DRIFT_FLOOR = 32, 1.5, (1.0, 0.05)
 # Multistream: the committed libopus sessions (tools/make_multistream_traffic.py);
 # session i of the batch replays fixture session i % (sessions in the group).
-MS_FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "multistream_traffic.npz"
+MS_FIXTURE = ROOT / "tests" / "data" / "multistream_traffic.npz"
 MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
 # The encode plane: BatchedPlanEncoder at B stereo 96 kbps (240-byte packets),
 # ENC_STEPS steps of music_pcm, the first a warm-up; streams 0-3 against the
@@ -257,6 +289,31 @@ PVQ_TRIP_CYCLES = 4 * (3 + 8 + 1)
 # reference's sharded allowance (tests/test_mesh_serve.py:81,190) of the
 # unsharded ring; MULTICHIP_RUNS timed runs a path.
 MULTICHIP_TOL, MULTICHIP_RUNS, MULTICHIP_DEADLINE_S = 1e-5, 3, 300
+# The library phase: a sample of the B=1024 batch, rows 0-3 and every 37th
+# row from 37 (31 streams: both ends of the batch and, 37 being prime to 3,
+# every kind of the mixed batch), and the first LIBRARY_SESSIONS of those
+# rows as multistream sessions, decoded again by the port's scalar decoders:
+# equal final ranges, PCM max-abs below LIBRARY_TOL (the reference's
+# batched-vs-scalar gate, tests/test_mixed_plan.py:56) and an RFC 8251
+# score of at least PASS_QUALITY over each stream's frames.
+LIBRARY_ROWS = [0, 1, 2, 3, *range(37, B, 37)]
+LIBRARY_TOL, LIBRARY_SESSIONS = 1e-3, 8
+# The CLI round trip: CLI_SECONDS of each input through `python3 -m
+# opus_tpu_torch`; the music SNR floor is tests/test_encoder.py:63-80's at
+# 128 kbps stereo, measured after the codec's CLI_DELAY samples.
+CLI_CASES = {  # case -> (WAV rate, channels, encode options)
+    "music": (48000, 2, ["--bitrate", "128000", "--vbr"]),
+    "speech": (16000, 1, ["--application", "voice", "--bitrate", "24000"]),
+}
+CLI_SECONDS, CLI_SNR_DB, CLI_DELAY = 4, 15.0, 120
+# Every Encoder session kind, 1 s of 48 kHz music-like input each: kind,
+# application, channels, bitrate, options.
+ENCODE_KINDS = [("music mono", "music", 1, 64000, {}),
+                ("music stereo", "music", 2, 128000, {"vbr": True}),
+                ("voice mono", "voice", 1, 24000, {}),
+                ("voice stereo", "voice", 2, 32000, {}),
+                ("hybrid mono", "hybrid", 1, 32000, {}),
+                ("voice mono fec", "voice", 1, 24000, {"fec": True})]
 
 
 def card() -> str:
@@ -783,20 +840,43 @@ def with_plan_losses(batches) -> list:
     return out
 
 
-def serve_steps(dec, batches) -> dict:
+def kept_rows(keep, sample) -> tuple[list, list, list]:
+    """The rows a serving loop copies from the ring each step (keep, then
+    sample, each row once), and where keep's and sample's rows lie in them."""
+    rows = list(dict.fromkeys([*keep, *sample]))
+    return rows, [rows.index(r) for r in keep], [rows.index(r) for r in sample]
+
+
+def sampled(pcm: list, ranges: list, rows: list) -> dict | None:
+    """The library phase's sample of a run: rows, PCM [n, steps x FRAME,
+    channels] and each step's final ranges of those rows."""
+    if not rows:
+        return None
+    return {"rows": list(rows), "pcm": np.concatenate(pcm, axis=1), "ranges": ranges}
+
+
+def serve_steps(dec, batches, sample=()) -> dict:
     """Serve one step per call; keep streams 0-3's PCM, each step's
     post-filter activity and its count of streams flagged for device
-    concealment (from the slot the step used)."""
+    concealment (from the slot the step used), and the PCM and final ranges
+    of the streams `sample` (for the library phase), with one gather of
+    the ring a step."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
-    pcm, chunks, flagged = [], [], []
+    rows, at_keep, at_sample = kept_rows(range(4), sample)
+    pcm, chunks, flagged, s_pcm, s_ranges = [], [], [], [], []
     for packets in batches:
         fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets], FRAME)
         ring = dec._serve_ring
         if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
             raise AssertionError("serve produced non-finite PCM")
-        pcm.append(ring[:4].cpu().numpy().copy())  # the ring is rewritten in place
+        kept = ring[rows].cpu().numpy()  # a copy: the ring is rewritten in place
+        pcm.append(kept[at_keep])
+        if sample:
+            s_pcm.append(kept[at_sample])
+            ranges = dec.final_ranges()
+            s_ranges.append([ranges[i] for i in sample])
         plan_slot = dec.transfer == "plan" and dec.plan_fallbacks == fallbacks
         if dec.transfer != "plan":
             slot = dec._slots[0]
@@ -812,7 +892,8 @@ def serve_steps(dec, batches) -> dict:
     pitch = getattr(dec, "_serve_plc_pitch", None)
     return {"pcm": np.concatenate(pcm, axis=1), "ranges": dec.final_ranges()[:4],
             "chunks": chunks, "flagged": flagged,
-            "plc_pitch": None if pitch is None else pitch[:4].cpu().numpy()}
+            "plc_pitch": None if pitch is None else pitch[:4].cpu().numpy(),
+            "sample": sampled(s_pcm, s_ranges, sample)}
 
 
 def same_layout(t):
@@ -1010,7 +1091,7 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     with recording_inputs(captured):
         for fn in counters.values():
             fn.launches = 0
-        got = serve_steps(dec, batches)
+        got = serve_steps(dec, batches, LIBRARY_ROWS if transfer == "plan" else ())
         launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
@@ -1038,7 +1119,7 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     want = serve_steps(cpu, [pk[:4] for pk in batches])
     pcm_err = check_against_cpu(name, got, want, batches, 4, lambda i: name == "plan-loss")
     return {"launches": launches, "chunks": got["chunks"], "real": real,
-            "variants": variants, "pcm_err": pcm_err,
+            "variants": variants, "pcm_err": pcm_err, "sample": got["sample"],
             "final_ring": dec._serve_ring.cpu().numpy(), "final_ranges": dec.final_ranges()}
 
 
@@ -1167,21 +1248,29 @@ def with_mixed_losses(batches) -> list:
     return out
 
 
-def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS)) -> dict:
+def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS), sample=()) -> dict:
     """Serve one step per call; keep the PCM of streams `keep` (0-5 by
     default), each step's post-filter activity, count of streams flagged
-    for device concealment, hybrid streams and upload words."""
+    for device concealment, hybrid streams and upload words, and the PCM
+    and final ranges of the streams `sample` (for the library phase), with
+    one gather of the ring a step."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
     keep = list(keep)
-    pcm, chunks, flagged, hybrid, words = [], [], [], [], []
+    rows, at_keep, at_sample = kept_rows(keep, sample)
+    pcm, chunks, flagged, hybrid, words, s_pcm, s_ranges = [], [], [], [], [], [], []
     for packets in batches:
         fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets])
         ring = dec._serve_ring
         if not bool(torch.isfinite(ring).all()) or not np.isfinite(digest).all():
             raise AssertionError("mixed serve produced non-finite PCM")
-        pcm.append(ring[keep].cpu().numpy())
+        kept = ring[rows].cpu().numpy()
+        pcm.append(kept[at_keep])
+        if sample:
+            s_pcm.append(kept[at_sample])
+            ranges = dec.final_ranges()
+            s_ranges.append([ranges[i] for i in sample])
         if dec.transfer != "plan":
             slot = dec._pk_slots[0]
         elif dec.plan_fallbacks == fallbacks:
@@ -1199,7 +1288,8 @@ def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS)) -> dict:
     pitch = getattr(dec, "_serve_plc_pitch", None)
     return {"pcm": np.concatenate(pcm, axis=1), "ranges": [ranges[i] for i in keep],
             "chunks": chunks, "flagged": flagged, "hybrid": hybrid, "words": words,
-            "plc_pitch": None if pitch is None else pitch[keep].cpu().numpy()}
+            "plc_pitch": None if pitch is None else pitch[keep].cpu().numpy(),
+            "sample": sampled(s_pcm, s_ranges, sample)}
 
 
 def mixed_path(dev, name: str, batches, where: str) -> dict:
@@ -1237,7 +1327,8 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     with recording_inputs(captured), shadow_probe(dec) as shadow:
         for fn in counters.values():
             fn.launches = 0
-        got = serve_mixed_steps(dec, batches, keep)
+        got = serve_mixed_steps(dec, batches, keep,
+                                LIBRARY_ROWS if name in ("mixed", "mixed-loss") else ())
         launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
@@ -1270,6 +1361,7 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
                                 lambda j: keep[j] % 3 == 0 and keep[j] % SWITCH_EVERY != 15)
     return {"launches": launches, "chunks": got["chunks"], "real": real, "variants": variants,
             "pcm_err": pcm_err, "words": got["words"], "shadow": shadow["steps"],
+            "sample": got["sample"],
             "final_ring": dec._serve_ring.cpu().numpy(), "final_ranges": dec.final_ranges()}
 
 
@@ -1844,29 +1936,31 @@ def load_ms_group(group: str, sessions: int) -> tuple[list, list, list]:
     return data[f"{group}_layout"].tolist(), steps, want
 
 
-def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4) -> dict:
+def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4, sample=()) -> dict:
     """Serve one multistream packet a session per call (`frames` core steps
     of 20 ms each); keep sessions 0..keep-1's PCM, every session's final
-    ranges after each call and the post-filter activity of every core step
-    (CELT cores)."""
+    ranges after each call, the post-filter activity of every core step
+    (CELT cores) and the PCM and final ranges of the sessions `sample`."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
     core = bmd.core
-    pcm, ranges, chunks = [], [], []
+    pcm, ranges, chunks, s_pcm = [], [], [], []
     for packets in steps:
         out = bmd.serve([packets], FRAME)
         if out.shape != (bmd.batch, FRAME, bmd.channels) or not np.isfinite(out).all():
             raise AssertionError(f"multistream serve returned {out.shape} PCM or non-finite "
                                  f"values")
         pcm.append(out[:keep])
+        s_pcm.append(out[list(sample)])
         ranges.append(bmd.final_ranges())
         if isinstance(core, BatchedCeltDecoder):
             slots = core._plan_slots if core.transfer == "plan" else core._slots
             for slot in slots[:frames]:
                 chunk, active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
                 chunks.append(chunk if active else None)
-    return {"pcm": np.concatenate(pcm, axis=1), "ranges": ranges, "chunks": chunks, "last": out}
+    return {"pcm": np.concatenate(pcm, axis=1), "ranges": ranges, "chunks": chunks, "last": out,
+            "sample": sampled(s_pcm, [[r[i] for i in sample] for r in ranges], sample)}
 
 
 MS_PATHS = {  # path -> (fixture group, sessions, mode, transfer, frames a packet)
@@ -1905,7 +1999,9 @@ def ms_path(dev, name: str, where: str) -> dict:
     with recording_inputs(captured):
         for fn in counters.values():
             fn.launches = 0
-        got = ms_serve_steps(bmd, steps, frames)
+        got = ms_serve_steps(bmd, steps, frames,
+                             sample=LIBRARY_ROWS[:LIBRARY_SESSIONS] if name == "multistream"
+                             else ())
         launches = {k: fn.launches for k, fn in counters.items()}
     wrong = [p for p, (g, w) in enumerate(zip(got["ranges"], want_ranges)) if g != w]
     fallbacks = getattr(bmd.core, "plan_fallbacks", 0)
@@ -1924,7 +2020,8 @@ def ms_path(dev, name: str, where: str) -> dict:
         if transfer == "plan":
             real["rotation"] = rotation_on_real_chains(captured["rotation"], where, label)
     out = {"launches": launches, "chunks": [], "pf_chunks": got["chunks"], "pcm_err": None,
-           "real": real, "final_ring": got["last"], "final_ranges": got["ranges"][-1]}
+           "real": real, "final_ring": got["last"], "final_ranges": got["ranges"][-1],
+           "sample": got["sample"], "layout": layout, "steps": steps}
     if group != "ambi":
         return out
     plc = check_launches(launches, got["chunks"], len(steps) if transfer == "plan" else 0,
@@ -2384,6 +2481,278 @@ def encode_path(dev, where: str) -> dict:
             "dev_ms": dev_ms, "iy_ms": iy_ms, "times": t, "real": real, "snr": snr}
 
 
+def packet_kind(pkt: bytes) -> str:
+    """The kind of a packet's stream from its ToC: "celt stereo", "silk mono" ..."""
+    from opus_tpu_torch import query_packet_channel_count, query_packet_codec_mode
+
+    mode = query_packet_codec_mode(pkt).name.split("_")[0].lower()
+    return f"{mode} {query_packet_channel_count(pkt).name.lower()}"
+
+
+def hold_to_scalar(name: str, sample: dict, columns: list, gate: bool, where: str = "",
+                   make=None, kind=packet_kind) -> dict:
+    """Decode each sampled stream's packets again with the port's scalar
+    decoder (`make()`; by default Decoder at 48 kHz stereo; columns[j] are
+    stream sample["rows"][j]'s packets, None where lost) and hold the
+    device run to it: the final range after every decoded packet, PCM
+    max-abs and the RFC 8251 score over the stream's frames.  With `gate`,
+    a range that differs, an error of LIBRARY_TOL or more or a score below
+    PASS_QUALITY raises.  Returns the worst error, the lowest score, the
+    ranges that were equal and the scalar ms a frame by kind."""
+    from opus_tpu_torch import Decoder, DecoderConfiguration
+    from opus_tpu_torch.conformance import PASS_QUALITY, compare
+
+    make = make or (lambda: Decoder(DecoderConfiguration()))
+    secs, frames = {}, {}
+    errs, scores, wrong, decoded = [], [], [], 0
+    for j, (row, col) in enumerate(zip(sample["rows"], columns)):
+        dec = make()
+        k = kind(next(p for p in col if p is not None))
+        out = []
+        for f, pkt in enumerate(col):
+            t0 = time.perf_counter()
+            out.append(dec.decode(pkt, FRAME))
+            secs[k] = secs.get(k, 0.0) + time.perf_counter() - t0
+            frames[k] = frames.get(k, 0) + 1
+            if pkt is not None:
+                decoded += 1
+                if dec.final_range != sample["ranges"][f][j]:
+                    wrong.append((row, f))
+        ref, got = np.concatenate(out), sample["pcm"][j]
+        errs.append(float(np.abs(got - ref).max()))
+        scores.append(compare(ref, got))
+    j_err, j_score = int(np.argmax(errs)), int(np.argmin(scores))
+    ms = {k: secs[k] / frames[k] * 1e3 for k in secs}
+    print(f"library {name}: {len(columns)} streams (rows {sample['rows']}) x {len(columns[0])} "
+          f"steps against the port's scalar decoder: final ranges equal after "
+          f"{decoded - len(wrong)} of {decoded} decoded packets (differing: {wrong[:8]}), worst "
+          f"max_abs_err={errs[j_err]} (row {sample['rows'][j_err]}), lowest RFC 8251 score="
+          f"{scores[j_score]} (row {sample['rows'][j_score]}); scalar decode ms a frame by "
+          f"kind {ms} ({'gated' if gate else 'recorded, not gated'}; {where})")
+    if gate and (wrong or errs[j_err] >= LIBRARY_TOL or scores[j_score] < PASS_QUALITY):
+        raise AssertionError(f"library {name}: the device decoder is off the port's scalar "
+                             f"decoder (ranges differ at {wrong[:8]}, max abs {errs[j_err]}, "
+                             f"score {scores[j_score]})")
+    return {"worst_err": errs[j_err], "lowest_score": scores[j_score],
+            "ranges_equal": decoded - len(wrong), "decoded": decoded, "ms_by_kind": ms}
+
+
+def cli_signals() -> dict:
+    """The CLI phase's 4 s inputs: music, the signal of the encoder's SNR
+    floor (tests/test_encoder.py `_sig`: 440 and 1870 Hz tones and noise,
+    the right channel 0.8 x, 5 samples late), and mono 16 kHz speech-like
+    pulses (`voice`, 140 Hz)."""
+    rng = np.random.default_rng(21)
+    n = 48000 * CLI_SECONDS
+    t = np.arange(n) / 48000
+    s = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.15 * np.sin(2 * np.pi * 1870 * t)
+         + 0.05 * rng.standard_normal(n))
+    music = np.stack([s, 0.8 * np.roll(s, 5)], -1)
+    speech = np.concatenate([voice(np.array([140.0]), np.array([0]), 16000, f, rng)[0]
+                             for f in range(50 * CLI_SECONDS)])[:, None]
+    return {"music": music, "speech": speech}
+
+
+def write_wav(path, pcm: np.ndarray, rate: int) -> np.ndarray:
+    """Write 16-bit PCM; returns the float samples the CLI reads back."""
+    import wave
+
+    q = np.round(np.clip(pcm, -1, 1) * 32767).astype(np.int16)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(q.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(q.tobytes())
+    return q.astype(np.float32) / 32768.0
+
+
+def read_wav(path) -> tuple[np.ndarray, int]:
+    import wave
+
+    with wave.open(str(path), "rb") as w:
+        raw, ch, rate = w.readframes(w.getnframes()), w.getnchannels(), w.getframerate()
+    return np.frombuffer(raw, np.int16).reshape(-1, ch), rate
+
+
+def run_cli(workdir: pathlib.Path, case: str, results: dict) -> None:
+    """`python3 -m opus_tpu_torch` on one CLI case in `workdir`: encode, then
+    info and decode together, a subprocess each; results[(case, command)] =
+    (return code, stdout, stderr, wall s).  Runs on a thread of its own
+    beside the other case and the scalar decodes; a process still running
+    when this returns (a timeout) is killed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    opts = CLI_CASES[case][2]
+    procs = []
+    try:
+        for group in ([["encode", f"{case}.wav", f"{case}.opus", *opts]],
+                      [["info", f"{case}.opus"], ["decode", f"{case}.opus", f"{case}.out.wav"]]):
+            procs = [(args[0], time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "opus_tpu_torch", *args], cwd=workdir, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for args in group]
+            for cmd, t0, proc in procs:
+                out, err = proc.communicate(timeout=300)
+                results[case, cmd] = (proc.returncode, out, err, time.perf_counter() - t0)
+    except Exception as e:  # noqa: BLE001  (raised again by check_cli on the main thread)
+        results["error"] = e
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def check_cli(workdir: pathlib.Path, results: dict, inputs: dict, where: str) -> dict:
+    """Gate the CLI round trip: every command exits 0; the Ogg file reads
+    back (every page's CRC) with the head that was written and the packet
+    count and bytes `info` printed; an in-process Encoder of the same
+    session writes the same packets on a native encoder, and the port's
+    Decoder reads each to the encoder's final range and to the samples of
+    the decoded WAV, which holds the input's whole frames; the music SNR
+    after the 120-sample codec delay (from sample 4800, as the floor's
+    test) is above CLI_SNR_DB; the speech SNR is printed."""
+    from opus_tpu_torch import Channels, Decoder, DecoderConfiguration, SamplingRate
+    from opus_tpu_torch.encoder import Encoder, EncoderConfiguration
+    from opus_tpu_torch.ogg import OggOpusReader, OpusHead
+
+    if "error" in results:
+        raise results["error"]
+    walls, enc_ms, dec_ms, snrs = {}, {}, {}, {}
+    for case, (rate, ch, opts) in CLI_CASES.items():
+        for cmd in ("encode", "info", "decode"):
+            rc, out, err, wall = results[case, cmd]
+            walls[f"{case} {cmd}"] = wall
+            print(f"library cli {case} {cmd}: rc {rc}, {wall} s: {out.strip()}")
+            if rc != 0:
+                raise AssertionError(f"python3 -m opus_tpu_torch {cmd} ({case}) exited {rc}: "
+                                     f"{err[-2000:]}")
+        reader = OggOpusReader((workdir / f"{case}.opus").read_bytes())
+        packets = reader.packets[2:]
+        if reader.packets[0] != OpusHead(channels=ch, pre_skip=0,
+                                         input_sample_rate=rate).to_bytes():
+            raise AssertionError(f"cli {case}: head {reader.head} is not the one written")
+        info = results[case, "info"][1]
+        if f"packets: {len(packets)}, bytes: {sum(map(len, packets))}," not in info:
+            raise AssertionError(f"cli {case}: info printed {info!r} for {len(packets)} packets")
+        app = "voice" if "voice" in opts else "music"
+        bitrate = int(opts[opts.index("--bitrate") + 1])
+        enc = Encoder(EncoderConfiguration(SamplingRate(rate), Channels(ch), bitrate,
+                                           application=app, vbr="--vbr" in opts, bandwidth="FB"))
+        if enc._native_enc is None:
+            raise AssertionError(f"cli {case}: the Encoder runs the Python {app} encoder")
+        dec = Decoder(DecoderConfiguration(SamplingRate.HZ_48000, Channels(ch)))
+        pcm = inputs[case]
+        frame = rate // 50
+        n = len(pcm) // frame
+        if len(packets) != n:
+            raise AssertionError(f"cli {case}: {len(packets)} packets for {n} frames")
+        out, t_enc, t_dec = [], 0.0, 0.0
+        for i in range(n):
+            t0 = time.perf_counter()
+            pkt = enc.encode(pcm[i * frame : (i + 1) * frame])
+            t1 = time.perf_counter()
+            out.append(dec.decode_float(pkt, 5760))
+            t_dec += time.perf_counter() - t1
+            t_enc += t1 - t0
+            if pkt != packets[i] or dec.final_range != enc.final_range:
+                raise AssertionError(f"cli {case}: packet {i} differs from the file's, or the "
+                                     f"decoder's final range {dec.final_range} is not the "
+                                     f"encoder's {enc.final_range}")
+        enc_ms[f"{app} {Channels(ch).name.lower()}"] = t_enc / n * 1e3
+        dec_ms[case] = t_dec / n * 1e3
+        y = np.concatenate(out)
+        wav, wav_rate = read_wav(workdir / f"{case}.out.wav")
+        if wav_rate != 48000 or wav.shape != (n * 960, ch) or not np.array_equal(
+                wav, (np.clip(y, -1, 1) * 32767).astype(np.int16)):
+            raise AssertionError(f"cli {case}: the decoded WAV ({wav.shape} at {wav_rate} Hz) is "
+                                 f"not the Decoder's {n} frames")
+        x = pcm.astype(np.float64)
+        if rate == 48000:
+            ref, got = x[: len(y) - CLI_DELAY], y[CLI_DELAY:].astype(np.float64)
+            err = got[4800:] - ref[4800:]
+            snrs[case] = float(10 * np.log10((ref[4800:] ** 2).sum() / (err ** 2).sum()))
+        else:  # 16 kHz speech against every third sample of the 48 kHz output
+            snrs[case] = float(best_snr(y[::3, :1], x[: len(y) // 3]))
+    print(f"library cli: SNR dB {snrs} (music gated above {CLI_SNR_DB}; speech recorded, "
+          f"at its best delay); encode ms a frame {enc_ms}; decode ms a frame {dec_ms}; walls "
+          f"s {walls} ({where})")
+    if not snrs["music"] > CLI_SNR_DB:
+        raise AssertionError(f"cli music: SNR {snrs['music']} dB is not above {CLI_SNR_DB}")
+    return {"walls": walls, "encode_ms": enc_ms, "decode_ms": dec_ms, "snr": snrs}
+
+
+def encode_kinds(where: str) -> dict:
+    """Every Encoder session kind the library serves, 1 s each: it must run
+    on a native encoder, and the port's Decoder must read every coded packet
+    to the encoder's final range.  Returns the encode ms a frame by kind."""
+    from opus_tpu_torch import Channels, Decoder, DecoderConfiguration, SamplingRate
+    from opus_tpu_torch.encoder import Encoder, EncoderConfiguration
+
+    x = cli_signals()["music"][:48000].astype(np.float32)
+    ms = {}
+    for kind, app, ch, bitrate, opts in ENCODE_KINDS:
+        enc = Encoder(EncoderConfiguration(SamplingRate.HZ_48000, Channels(ch), bitrate,
+                                           application=app, **opts))
+        if enc._native_enc is None:
+            raise AssertionError(f"encode {kind}: the Encoder runs its Python encoder")
+        dec = Decoder(DecoderConfiguration(SamplingRate.HZ_48000, Channels(ch)))
+        secs = 0.0
+        for i in range(50):
+            t0 = time.perf_counter()
+            pkt = enc.encode(x[i * 960 : (i + 1) * 960, :ch])
+            secs += time.perf_counter() - t0
+            dec.decode_float(pkt, 960)
+            if dec.final_range != enc.final_range:
+                raise AssertionError(f"encode {kind}: frame {i}'s final range differs")
+        ms[kind] = secs / 50 * 1e3
+    print(f"library encode: native encoder on every session kind, every final range equal to "
+          f"the port's Decoder's; encode ms a frame {ms} ({where})")
+    return ms
+
+
+def library_phase(paths: dict, traffic: dict, where: str) -> dict:
+    """The codec library on the card's host.  The sampled streams of the
+    plan and mixed paths (LIBRARY_ROWS of B) and LIBRARY_SESSIONS sessions
+    of the multistream path are decoded again by the port's scalar Decoder
+    and MultistreamDecoder and the device runs held to them (gated); the
+    loss paths' numbers are printed, not gated.  Meanwhile a thread for each
+    CLI case runs its round trip, which is then checked; then every Encoder
+    session kind is driven.  Launches no kernel."""
+    from opus_tpu_torch import SamplingRate
+    from opus_tpu_torch.multistream import MultistreamDecoder
+
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="opus_cli_"))
+    try:
+        inputs = {case: write_wav(workdir / f"{case}.wav", sig, CLI_CASES[case][0])
+                  for case, sig in cli_signals().items()}
+        results = {}
+        clis = [threading.Thread(target=run_cli, args=(workdir, case, results))
+                for case in CLI_CASES]
+        for t in clis:
+            t.start()
+        held = {}
+        for name, gate in (("plan", True), ("mixed", True), ("plan-loss", False),
+                           ("mixed-loss", False)):
+            sample = paths[name]["sample"]
+            prefix = TOC_CELT if name.startswith("plan") else b""
+            columns = [[None if pk[i] is None else prefix + pk[i] for pk in traffic[name]]
+                       for i in sample["rows"]]
+            held[name] = hold_to_scalar(name, sample, columns, gate, where)
+        ms = paths["multistream"]
+        ch, streams, coupled, *mapping = ms["layout"]
+        held["multistream"] = hold_to_scalar(
+            "multistream", ms["sample"], [[pk[i] for pk in ms["steps"]]
+                                          for i in ms["sample"]["rows"]], True, where,
+            make=lambda: MultistreamDecoder(SamplingRate.HZ_48000, ch, streams, coupled, mapping),
+            kind=lambda pkt: "multistream session")
+        for t in clis:
+            t.join()
+        out = {"held": held, "cli": check_cli(workdir, results, inputs, where),
+               "encode_ms": encode_kinds(where)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2438,6 +2807,8 @@ def main() -> int:
                       dev, where)
     for name in MS_PATHS:
         paths[name] = timed(name, ms_path, dev, name, where)
+    library = timed("library", library_phase, paths, {
+        "plan": clean, "plan-loss": plan_lossy, "mixed": mixed, "mixed-loss": mixed_lossy}, where)
     paths.update(timed("multichip", multichip_phase, dev, where, clean, mixed, paths))
     world = paths["multichip-plan"]["world"]
     timed("dryrun_multichip", lambda: dryrun_multichip(world, device="cuda"))
@@ -2478,6 +2849,13 @@ def main() -> int:
           f"fallback {encode['host_ms']['fallback']}); device plane {encode['dev_ms']} ms a step "
           f"= {B * 0.02 / encode['dev_ms'] * 1e3} audio_s_per_s; iy download {encode['iy_ms']} "
           f"ms ({where})")
+    print("library summary: " + json.dumps({
+        path: {"worst_max_abs_err": v["worst_err"], "lowest_rfc8251_score": v["lowest_score"],
+               "final_ranges_equal": f"{v['ranges_equal']} of {v['decoded']}",
+               "scalar_decode_ms_a_frame": v["ms_by_kind"]}
+        for path, v in library["held"].items()})
+        + f"; encode ms a frame {library['encode_ms']}; CLI walls s {library['cli']['walls']}, "
+          f"SNR dB {library['cli']['snr']}; phase wall {walls['library']} s ({where})")
     print("wall by phase (s): " + json.dumps({k: round(v, 1) for k, v in walls.items()})
           + f"; total {time.perf_counter() - start} s")
 

@@ -5,8 +5,13 @@ opus_tpu/batch/opus_pipeline.py: the batched CELT decode into f32 / Q14 /
 packed / plan slots, the mixed-mode Opus decode (CELT, SILK and hybrid
 streams in one call) into packed and plan slots, the final ranges, the
 batched CELT, SILK and hybrid encoders (payloads for tests and the smoke
-run) and the plan-slot helpers.  The engines are built from this
-directory's sources by build.py; the port imports nothing of `opus_tpu`.
+run) and the plan-slot helpers.  The scalar codec library reaches the
+one-stream wrappers: Encoder (encoder.py) encodes with NativeCeltEncoder,
+NativeVoiceEncoder, NativeStereoVoiceEncoder and NativeHybridEncoder, by
+those names; NativeCeltFrontEnd, NativeSilkEncoder, NativeSilkFrontEnd
+and NativeSilkBatch keep the reference's constructors, methods and
+return values.  The engines are built from this directory's sources by
+build.py; the port imports nothing of `opus_tpu`.
 """
 
 from __future__ import annotations
@@ -52,7 +57,13 @@ def _load():
     lib.celt_fe_destroy.argtypes = [ctypes.c_void_p]
     lib.celt_fe_rng.restype = ctypes.c_uint32
     lib.celt_fe_rng.argtypes = [ctypes.c_void_p]
+    lib.celt_fe_reset.argtypes = [ctypes.c_void_p]
+    lib.celt_fe_config.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.celt_fe_decode.restype = ctypes.c_int
+    lib.celt_fe_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, f64p, f32p, i32p, f64p]
     head = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, i32p, ctypes.c_int,
             ctypes.c_int, i32p]
     lib.celt_fe_decode_batch_f32.restype = ctypes.c_int
@@ -79,6 +90,12 @@ def _load():
     lib.celt_enc_create.restype = ctypes.c_void_p
     lib.celt_enc_create.argtypes = [ctypes.c_int]
     lib.celt_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.celt_enc_reset.argtypes = [ctypes.c_void_p]
+    lib.celt_enc_rng.restype = ctypes.c_uint32
+    lib.celt_enc_rng.argtypes = [ctypes.c_void_p]
+    lib.celt_enc_encode2.restype = ctypes.c_int
+    lib.celt_enc_encode2.argtypes = [ctypes.c_void_p, f32p, ctypes.c_int, ctypes.c_int, u8p,
+                                     ctypes.c_int, ctypes.c_int]
     lib.celt_enc_encode_batch.restype = ctypes.c_int
     lib.celt_enc_encode_batch.argtypes = [
         vpp, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
@@ -108,6 +125,11 @@ def _load():
     lib.silk_enc_create.restype = ctypes.c_void_p
     lib.silk_enc_create.argtypes = [ctypes.c_int]
     lib.silk_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.silk_enc_reset.argtypes = [ctypes.c_void_p]
+    lib.silk_enc_rng.restype = ctypes.c_uint32
+    lib.silk_enc_rng.argtypes = [ctypes.c_void_p]
+    lib.silk_enc_encode.restype = ctypes.c_int
+    lib.silk_enc_encode.argtypes = [ctypes.c_void_p, i16p, ctypes.c_int, ctypes.c_int, u8p]
     lib.silk_enc_encode_batch.restype = ctypes.c_int
     lib.silk_enc_encode_batch.argtypes = [
         vpp, i16p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
@@ -119,6 +141,14 @@ def _load():
     lib.voice_enc_rng.argtypes = [ctypes.c_void_p]
     lib.voice_enc_encode.restype = ctypes.c_int
     lib.voice_enc_encode.argtypes = [ctypes.c_void_p, i16p, ctypes.c_int, ctypes.c_int, u8p]
+    lib.stereo_voice_enc_create.restype = ctypes.c_void_p
+    lib.stereo_voice_enc_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.stereo_voice_enc_destroy.argtypes = [ctypes.c_void_p]
+    lib.stereo_voice_enc_rng.restype = ctypes.c_uint32
+    lib.stereo_voice_enc_rng.argtypes = [ctypes.c_void_p]
+    lib.stereo_voice_enc_encode.restype = ctypes.c_int
+    lib.stereo_voice_enc_encode.argtypes = [ctypes.c_void_p, i16p, i16p, ctypes.c_int,
+                                            ctypes.c_int, u8p]
     lib.hybrid_enc_create.restype = ctypes.c_void_p
     lib.hybrid_enc_create.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.hybrid_enc_destroy.argtypes = [ctypes.c_void_p]
@@ -130,6 +160,16 @@ def _load():
     lib.hybrid_enc_encode_batch.argtypes = [
         vpp, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
         ctypes.c_int64, i32p]
+    # The SILK decoder's plane A (silk_frontend.cpp), one stream or a batch.
+    lib.silk_fe_create.restype = ctypes.c_void_p
+    lib.silk_fe_create.argtypes = [ctypes.c_int]
+    lib.silk_fe_destroy.argtypes = [ctypes.c_void_p]
+    lib.silk_fe_decode.restype = ctypes.c_int
+    lib.silk_fe_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, i16p,
+                                   f32p, f32p, f32p, f32p, f32p, i32p, u32p]
+    lib.silk_fe_decode_batch.restype = ctypes.c_int
+    lib.silk_fe_decode_batch.argtypes = [vpp, ctypes.c_char_p, i32p, ctypes.c_int, i16p,
+                                         ctypes.c_int64, u32p]
     _LIB = lib
     return lib
 
@@ -144,6 +184,63 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+class NativeCeltFrontEnd:
+    """Plane A of one CELT stream: decodes a frame's symbols into the
+    planes dict of the reference's wrapper (the spectrum in f64, band
+    energies, flags and post-filter parameters)."""
+
+    NB_E_BANDS = 21
+
+    def __init__(self, channels: int, downsample: int = 1):
+        self.lib = _load()
+        self.channels = channels
+        self.downsample = downsample
+        self.h = self.lib.celt_fe_create(channels, downsample)
+        self.stream_channels = channels
+        self.start_band = 0
+        self.end_band = self.NB_E_BANDS
+        self._x = np.zeros(2 * 960, np.float64)
+        self._ble = np.zeros(2 * self.NB_E_BANDS, np.float32)
+        self._meta = np.zeros(16, np.int32)
+        self._gains = np.zeros(3, np.float64)
+
+    def __del__(self):
+        try:
+            self.lib.celt_fe_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    def reset(self):
+        self.lib.celt_fe_reset(self.h)
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.celt_fe_rng(self.h))
+
+    def decode_planes(self, data: bytes, frame_size: int) -> dict:
+        """frame_size in samples at the decoder rate (48000/downsample)."""
+        self.lib.celt_fe_config(self.h, self.start_band, self.end_band, -1)
+        rc = self.lib.celt_fe_decode(
+            self.h, data, len(data), frame_size * self.downsample, self.stream_channels,
+            _ptr(self._x, ctypes.c_double), _ptr(self._ble, ctypes.c_float),
+            _ptr(self._meta, ctypes.c_int32), _ptr(self._gains, ctypes.c_double))
+        if rc != 0:
+            raise ValueError(f"native celt frontend failed: {rc}")
+        m = self._meta
+        c_, n = int(m[3]), 120 << int(m[2])
+        planes = {
+            "x": self._x[: c_ * n].copy(),
+            "band_log_e": self._ble.reshape(2, self.NB_E_BANDS)[: self.channels].copy(),
+            "silence": bool(m[0]), "short_blocks": bool(m[1]), "lm": int(m[2]),
+            "stream_channels": c_, "start": int(m[4]), "eff_end": int(m[5]),
+        }
+        for k in range(3):
+            planes[f"pf_period{k}"] = int(m[6 + k])
+            planes[f"pf_tapset{k}"] = int(m[9 + k])
+            planes[f"pf_gain{k}"] = float(self._gains[k])
+        return planes
 
 
 class NativeBatchFrontEnd:
@@ -280,6 +377,41 @@ class NativeBatchFrontEnd:
         finish_plan_slot(slot, int(used.value))
         slot["xdbg"] = xdbg
         return slot
+
+
+class NativeCeltEncoder:
+    """Native CELT encoder (celt_encoder.inc), one stream, CBR payloads
+    (no ToC).  `end_band` and `complexity` apply from the next frame."""
+
+    def __init__(self, channels: int):
+        self.lib = _load()
+        self.channels = channels
+        self.end_band = 21
+        self.complexity = 10
+        self.h = self.lib.celt_enc_create(channels)
+
+    def __del__(self):
+        try:
+            self.lib.celt_enc_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    def reset(self):
+        self.lib.celt_enc_reset(self.h)
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.celt_enc_rng(self.h))
+
+    def encode(self, pcm: np.ndarray, nb_bytes: int) -> bytes:
+        """pcm [N, channels] f32 in +-1 at 48 kHz -> nb_bytes of payload."""
+        fr = np.ascontiguousarray(pcm, dtype=np.float32)
+        out = np.zeros(nb_bytes, np.uint8)
+        rc = self.lib.celt_enc_encode2(self.h, _ptr(fr, ctypes.c_float), fr.shape[0], nb_bytes,
+                                       _ptr(out, ctypes.c_uint8), self.end_band, self.complexity)
+        if rc != 0:
+            raise ValueError(f"native celt encode failed: {rc}")
+        return bytes(out)
 
 
 class NativeCeltEncoderBatch:
@@ -424,6 +556,41 @@ class NativeOpusFrontEnd:
         return rcs
 
 
+class NativeSilkEncoder:
+    """Native SILK encoder (silk_encoder.inc), one mono stream at a fixed
+    internal rate, CBR payloads (no ToC)."""
+
+    def __init__(self, fs_khz: int):
+        self.lib = _load()
+        self.fs_khz = fs_khz
+        self.h = self.lib.silk_enc_create(fs_khz)
+        if not self.h:
+            raise ValueError(f"bad internal rate {fs_khz}")
+        self._out = np.zeros(1400, np.uint8)
+
+    def __del__(self):
+        try:
+            self.lib.silk_enc_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    def reset(self):
+        self.lib.silk_enc_reset(self.h)
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.silk_enc_rng(self.h))
+
+    def encode(self, x: np.ndarray, budget_bytes: int) -> bytes:
+        """x: int16 at the internal rate (10/20/40/60 ms) -> payload."""
+        xi = np.ascontiguousarray(x, dtype=np.int16)
+        rc = self.lib.silk_enc_encode(self.h, _ptr(xi, ctypes.c_int16), xi.shape[0],
+                                      budget_bytes, _ptr(self._out, ctypes.c_uint8))
+        if rc < 0:
+            raise ValueError(f"native silk encode failed: {rc}")
+        return bytes(self._out[:rc])
+
+
 class NativeSilkEncoderBatch:
     """Batch of native SILK encoders (silk_encoder.inc), one mono stream
     each at a fixed internal rate, CBR; one C call encodes every stream.
@@ -490,6 +657,39 @@ class NativeVoiceEncoder:
         return bytes(self._out[:rc])
 
 
+class NativeStereoVoiceEncoder:
+    """Native stereo voice (SILK mid/side) encoder with the input-rate
+    conversion of each channel inside (silk_encoder.inc StereoVoiceEnc)."""
+
+    def __init__(self, fs_khz: int, in_rate_hz: int, fec: bool = False):
+        self.lib = _load()
+        self.h = self.lib.stereo_voice_enc_create(fs_khz, in_rate_hz, int(fec))
+        if not self.h:
+            raise ValueError(f"bad internal rate {fs_khz}")
+        self._out = np.zeros(1400, np.uint8)
+
+    def __del__(self):
+        try:
+            self.lib.stereo_voice_enc_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    @property
+    def final_range(self) -> int:
+        return int(self.lib.stereo_voice_enc_rng(self.h))
+
+    def encode(self, left: np.ndarray, right: np.ndarray, budget_bytes: int) -> bytes:
+        """left/right: int16 at the input rate (10-60 ms) -> SILK payload."""
+        li = np.ascontiguousarray(left, dtype=np.int16)
+        ri = np.ascontiguousarray(right, dtype=np.int16)
+        rc = self.lib.stereo_voice_enc_encode(self.h, _ptr(li, ctypes.c_int16),
+                                              _ptr(ri, ctypes.c_int16), li.shape[0],
+                                              budget_bytes, _ptr(self._out, ctypes.c_uint8))
+        if rc < 0:
+            raise ValueError(f"native stereo voice encode failed: {rc}")
+        return bytes(self._out[:rc])
+
+
 class NativeHybridEncoder:
     """Native hybrid encoder (SILK WB low band + CELT bands 17..19 behind
     one range coder; SWB 20/10 ms, CBR).  Payloads carry no ToC (the
@@ -550,6 +750,86 @@ class NativeHybridEncoderBatch:
         if rc != B:
             raise ValueError(f"native hybrid batch encode failed at {-rc - 1}")
         return out, sizes
+
+
+class NativeSilkFrontEnd:
+    """Native SILK plane A of one mono stream: the bit-exact 20 ms frame
+    decode and, on request, the device-plane parameters."""
+
+    def __init__(self, fs_khz: int):
+        self.lib = _load()
+        self.fs_khz = fs_khz
+        self.h = self.lib.silk_fe_create(fs_khz)
+        L = 20 * fs_khz
+        self._xq = np.zeros(L, np.int16)
+        self._gexc = np.zeros(L, np.float32)
+        self._a1 = np.zeros(16, np.float32)
+        self._a2 = np.zeros(16, np.float32)
+        self._bt = np.zeros(20, np.float32)
+        self._head = np.zeros(18 * fs_khz + 2, np.float32)
+        self._meta = np.zeros(8, np.int32)
+        self._rng = ctypes.c_uint32()
+
+    def __del__(self):
+        try:
+            self.lib.silk_fe_destroy(self.h)
+        except (AttributeError, TypeError):
+            pass
+
+    def decode(self, payload: bytes, want_planes: bool = False):
+        """Decode one 20 ms mono SILK frame -> (xq int16, planes | None)."""
+        planes = (self._gexc, self._a1, self._a2, self._bt, self._head)
+        args = ([_ptr(a, ctypes.c_float) for a in planes] + [_ptr(self._meta, ctypes.c_int32)]
+                if want_planes else [None] * 6)
+        rc = self.lib.silk_fe_decode(self.h, payload, len(payload),
+                                     _ptr(self._xq, ctypes.c_int16), *args,
+                                     ctypes.byref(self._rng))
+        if rc != 0:
+            raise ValueError(f"native silk decode failed: {rc}")
+        if not want_planes:
+            return self._xq.copy(), None
+        return self._xq.copy(), {
+            "gexc": self._gexc.copy(), "a1": self._a1.copy(), "a2": self._a2.copy(),
+            "b": self._bt.reshape(4, 5).copy(), "head": self._head.copy(),
+            "voiced": bool(self._meta[0]), "lags": self._meta[2:6].copy(),
+        }
+
+    @property
+    def final_range(self) -> int:
+        return int(self._rng.value)
+
+
+class NativeSilkBatch:
+    """Batch of native SILK decoders; one C call decodes every stream."""
+
+    def __init__(self, batch: int, fs_khz: int):
+        self.proto = NativeSilkFrontEnd(fs_khz)
+        self.lib = self.proto.lib
+        self.batch = batch
+        self.fs_khz = fs_khz
+        self.handles = (ctypes.c_void_p * batch)(
+            *[self.lib.silk_fe_create(fs_khz) for _ in range(batch)])
+        self.L = 20 * fs_khz
+
+    def __del__(self):
+        try:
+            for h in self.handles:
+                self.lib.silk_fe_destroy(h)
+        except (AttributeError, TypeError):
+            pass
+
+    def decode_batch(self, payloads: list):
+        """payloads: B mono 20 ms SILK frames (no ToC) -> (xq [B, L] int16,
+        final ranges [B] u32)."""
+        lens = np.array([len(p) for p in payloads], np.int32)
+        xq = np.zeros((self.batch, self.L), np.int16)
+        rngs = np.zeros(self.batch, np.uint32)
+        rc = self.lib.silk_fe_decode_batch(
+            self.handles, b"".join(payloads), _ptr(lens, ctypes.c_int32), self.batch,
+            _ptr(xq, ctypes.c_int16), self.L, _ptr(rngs, ctypes.c_uint32))
+        if rc != self.batch:
+            raise ValueError(f"native silk batch failed at {-rc - 1}")
+        return xq, rngs
 
 
 def plan_slot_views(buf: np.ndarray, batch: int, arena_words_per_stream: int,

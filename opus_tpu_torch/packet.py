@@ -1,80 +1,89 @@
-"""The ToC layer the serving loops need (RFC 6716 sec. 3).
+"""The Opus packet layer (RFC 6716 sec. 3), a copy of opus_tpu.packet.
 
-A copy of what `BatchedOpusDecoder._toc_arrays` and the multistream
-splitter read from opus_tpu/packet.py and opus_tpu/types.py: the
-bandwidth and codec-mode codes, the ToC queries and the framing parse,
-with the self-delimited form that every elementary stream of a
-multistream packet but the last uses (RFC 6716 appendix B).  It is copied
-because the port imports nothing of opus_tpu; tests/test_torch_opus.py
-and tests/test_torch_multistream.py hold it to the reference on real and
-fuzzed packets.
+ToC queries and the framing parse, with the self-delimited form that
+every elementary stream of a multistream packet but the last uses (RFC
+6716 appendix B).  The scalar Decoder, the repacketizer, the multistream
+codec and the CLI use it, and so do the serving loops' ToC parse
+(batch/opus_pipeline.py) and the multistream splitter
+(batch/multistream_pipeline.py).
+
+Below this docstring the code is the reference's, unchanged
+(tests/test_torch_library.py holds the two equal).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import enum
 
-#: Maximum duration of one packet in 48 kHz samples (120 ms).
-MAX_PACKET_SAMPLES_48K = 5760
+from .errors import InvalidPacket
+from .types import BANDWIDTH_TABLE, Bandwidth, Channels, CodecMode, SamplingRate
+
+#: Maximum number of frames in one packet (RFC 6716 sec. 3.2.5).
+MAX_FRAMES_PER_PACKET = 48
+
 #: Maximum size of a single compressed frame in bytes (RFC 6716 sec. 3.4).
 MAX_FRAME_BYTES = 1275
 
-
-class InvalidPacket(ValueError):
-    """A packet that RFC 6716 sec. 3 framing rejects."""
-
-
-class Bandwidth(enum.IntEnum):
-    """Audio bandwidth; the values are libopus' OPUS_BANDWIDTH_* codes."""
-
-    NARROWBAND = 1101
-    MEDIUMBAND = 1102
-    WIDEBAND = 1103
-    SUPERWIDEBAND = 1104
-    FULLBAND = 1105
-
-
-class CodecMode(enum.Enum):
-    """Coding layer of a packet."""
-
-    SILK_ONLY = enum.auto()
-    HYBRID = enum.auto()
-    CELT_ONLY = enum.auto()
-
-
-#: ToC config (0..31) -> bandwidth: SILK NB/MB/WB (4 each), hybrid SWB/FB
-#: (2 each), CELT NB/WB/SWB/FB (4 each).
-BANDWIDTH_TABLE: tuple[Bandwidth, ...] = tuple(
-    bw for count, bw in ((4, Bandwidth.NARROWBAND), (4, Bandwidth.MEDIUMBAND),
-                         (4, Bandwidth.WIDEBAND), (2, Bandwidth.SUPERWIDEBAND),
-                         (2, Bandwidth.FULLBAND), (4, Bandwidth.NARROWBAND),
-                         (4, Bandwidth.WIDEBAND), (4, Bandwidth.SUPERWIDEBAND),
-                         (4, Bandwidth.FULLBAND))
-    for _ in range(count)
-)
+#: Maximum duration of one packet in 48 kHz samples (120 ms).
+MAX_PACKET_SAMPLES_48K = 5760
 
 
 def query_packet_bandwidth(packet: bytes) -> Bandwidth:
+    """Audio bandwidth from the ToC byte (reference: lib.rs:219-224)."""
     if not packet:
         raise InvalidPacket("empty packet")
     return BANDWIDTH_TABLE[(packet[0] & 0xF8) >> 3]
 
 
-def query_packet_samples_per_frame(packet: bytes, sampling_rate: int) -> int:
+def query_packet_channel_count(packet: bytes) -> Channels:
+    """Channel count from ToC bit 2 (reference: lib.rs:233-241)."""
+    if not packet:
+        raise InvalidPacket("empty packet")
+    return Channels.STEREO if packet[0] & 0x4 else Channels.MONO
+
+
+def query_packet_frame_count(packet: bytes) -> int:
+    """Number of frames from the framing code (reference: lib.rs:250-263)."""
+    if not packet:
+        raise InvalidPacket("empty packet")
+    code = packet[0] & 0x3
+    if code == 0:
+        return 1
+    if code != 3:
+        return 2
+    if len(packet) < 2:
+        raise InvalidPacket("code-3 packet without count byte")
+    return packet[1] & 0x3F
+
+
+def query_packet_samples_per_frame(packet: bytes, sampling_rate: SamplingRate | int) -> int:
+    """Samples per frame from the ToC config bits (reference: lib.rs:271-289)."""
     rate = int(sampling_rate)
     toc = packet[0]
-    if toc & 0x80:  # CELT-only: 2.5/5/10/20 ms
+    if toc & 0x80:
+        # CELT-only: 2.5/5/10/20 ms.
         return (rate << ((toc >> 3) & 0x3)) // 400
-    if (toc & 0x60) == 0x60:  # hybrid: 10 or 20 ms
+    if (toc & 0x60) == 0x60:
+        # Hybrid: 10 or 20 ms.
         return rate // 50 if toc & 0x08 else rate // 100
-    size_code = (toc >> 3) & 0x3  # SILK-only: 10/20/40/60 ms
+    # SILK-only: 10/20/40/60 ms.
+    size_code = (toc >> 3) & 0x3
     if size_code == 3:
         return rate * 60 // 1000
     return (rate << size_code) // 100
 
 
+def query_packet_sample_count(packet: bytes, sampling_rate: SamplingRate | int) -> int:
+    """Total samples in a packet, capped at 120 ms (reference: lib.rs:299-310)."""
+    count = query_packet_frame_count(packet)
+    samples = count * query_packet_samples_per_frame(packet, sampling_rate)
+    if samples * 25 > int(sampling_rate) * 3:
+        raise InvalidPacket("packet longer than 120 ms")
+    return samples
+
+
 def query_packet_codec_mode(packet: bytes) -> CodecMode:
+    """Coding layer from the ToC top bits (reference: lib.rs:317-325)."""
     toc = packet[0]
     if toc & 0x80:
         return CodecMode.CELT_ONLY
@@ -83,8 +92,11 @@ def query_packet_codec_mode(packet: bytes) -> CodecMode:
     return CodecMode.SILK_ONLY
 
 
-def _parse_size(data: bytes) -> tuple[int, int]:
-    """A 1-2 byte frame length field -> (size, bytes consumed)."""
+def parse_size(data: bytes) -> tuple[int, int]:
+    """Decode a 1-2 byte frame length field (reference: lib.rs:500-512).
+
+    Returns ``(size, bytes_consumed)``.
+    """
     if not data:
         raise InvalidPacket("missing frame size byte")
     if data[0] < 252:
@@ -96,6 +108,13 @@ def _parse_size(data: bytes) -> tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class ParsedPacket:
+    """Result of :func:`parse_packet`.
+
+    ``frame_offsets[i]``/``frame_sizes[i]`` delimit frame ``i`` inside the
+    original packet buffer (the frames are not copied, mirroring the
+    reference's offset-returning API, lib.rs:334).
+    """
+
     toc: int
     frame_offsets: tuple[int, ...]
     frame_sizes: tuple[int, ...]
@@ -107,21 +126,24 @@ class ParsedPacket:
         return len(self.frame_sizes)
 
     def frames(self, packet: bytes) -> list[bytes]:
-        """The frame payloads, sliced from the packet buffer."""
-        return [packet[off : off + size]
-                for off, size in zip(self.frame_offsets, self.frame_sizes)]
+        """Materialise the frame payloads from the packet buffer."""
+        return [
+            packet[off : off + size]
+            for off, size in zip(self.frame_offsets, self.frame_sizes)
+        ]
 
 
 def parse_packet(packet: bytes, self_delimited: bool = False) -> ParsedPacket:
-    """Split an Opus packet into frames: codes 0-3, CBR/VBR, padding and,
-    with `self_delimited`, the explicit last-frame length of the
-    self-delimited form (RFC 6716 sec. 3.2, appendix B); `packet_offset`
-    is where the next packet starts.  Raises InvalidPacket on malformed
-    input."""
+    """Split an Opus packet into frames (reference: lib.rs:345-498).
+
+    Implements RFC 6716 sec. 3.2 framing: codes 0-3, CBR/VBR, padding
+    run-length chains and the optional self-delimited final length used by
+    multistream packets.  Raises :class:`InvalidPacket` on malformed input.
+    """
     if not packet:
         raise InvalidPacket("empty packet")
 
-    framesize = query_packet_samples_per_frame(packet, 48000)
+    framesize = query_packet_samples_per_frame(packet, SamplingRate.HZ_48000)
     toc = packet[0]
     code = toc & 0x3
     offset = 1
@@ -144,7 +166,7 @@ def parse_packet(packet: bytes, self_delimited: bool = False) -> ParsedPacket:
             sizes.append(last_size)
     elif code == 2:
         count = 2
-        size0, consumed = _parse_size(packet[offset:])
+        size0, consumed = parse_size(packet[offset:])
         length -= consumed
         if size0 > length:
             raise InvalidPacket("VBR frame size exceeds packet")
@@ -181,7 +203,7 @@ def parse_packet(packet: bytes, self_delimited: bool = False) -> ParsedPacket:
         if not cbr:
             last_size = length
             for _ in range(count - 1):
-                size_i, consumed = _parse_size(packet[offset:])
+                size_i, consumed = parse_size(packet[offset:])
                 length -= consumed
                 if size_i > length:
                     raise InvalidPacket("VBR frame size exceeds packet")
@@ -197,7 +219,7 @@ def parse_packet(packet: bytes, self_delimited: bool = False) -> ParsedPacket:
                 sizes.extend([last_size] * (count - 1))
 
     if self_delimited:
-        final_size, consumed = _parse_size(packet[offset:])
+        final_size, consumed = parse_size(packet[offset:])
         length -= consumed
         if final_size > length:
             raise InvalidPacket("self-delimited size exceeds packet")

@@ -232,10 +232,10 @@ def _outcome(fn, *args):
 def test_split_and_self_delimited_parse_match_reference(kind):
     """split_multistream_packet and parse_packet (both framings) give the
     reference's result on every packet, or raise where it raises, with the
-    port's InvalidPacket (a ValueError)."""
+    port's one InvalidPacket (errors.InvalidPacket, an OpusError)."""
     from opus_tpu import packet as ref_packet
     from opus_tpu.batch.multistream_pipeline import split_multistream_packet as ref_split
-    from opus_tpu_torch import packet
+    from opus_tpu_torch import errors, packet
     from opus_tpu_torch.batch.multistream_pipeline import split_multistream_packet
 
     cases = [c for c in _packet_cases() if c[0] == kind]
@@ -263,7 +263,7 @@ def test_split_and_self_delimited_parse_match_reference(kind):
         assert raised > 0
     else:
         assert raised == 0
-    assert issubclass(packet.InvalidPacket, ValueError)
+    assert packet.InvalidPacket is errors.InvalidPacket
 
 
 def test_fixture_matches_its_description():
