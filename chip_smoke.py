@@ -139,11 +139,13 @@ phases (synthetic CELT + SILK + regroup, the real bitstream, the mixed
 plan serve) on the card.
 
 The encode plane (BatchedPlanEncoder): its kernel pvq_search (csrc/pvq.cu,
-the greedy PVQ search of every leaf, one warp a leaf) must equal its plain
+the greedy PVQ search of every used leaf, on a tile of 8, 16 or 32 lanes
+by its width, its pulses packed int16 in plan order) must equal its plain
 version exactly, iy and left, on synthetic leaves (`pvq_inputs`: n = 1, 2,
-3, 176, K below and above n / 2, zero, tiny and large sums, ties, K = 200,
-mid/side and intensity bands, clamped planes and offsets; stereo and
-mono), then:
+3, 176 and every width-class edge, K below and above n / 2, zero, tiny and
+large sums, ties, K = 200, mid/side and intensity bands, clamped planes
+and offsets; stereo and mono; `pvq_one_class`: a batch of each class
+alone), then:
 
 * encode: B=1024 stereo at 96 kbps (240-byte packets), 4 steps of
   seeded music-like PCM (`music_pcm`; the last stream silent), the first a
@@ -154,8 +156,9 @@ mono), then:
   run at B=4; the kernel held to its plain version on all 1024 x 160 rows
   of the first step's recorded inputs.  Prints the encode rate end to end,
   the host ms a step (plan, emit, fallback), the device plane (analyze +
-  search on resident inputs, CUDA events), the iy download, and the
-  kernel's times (wrapper, bare, CUDA-graph replay, plain) with its bound.
+  search on resident inputs, CUDA events), the packed iy download and its
+  bytes, and the kernel's times (wrapper, bare, CUDA-graph replay, plain)
+  with its bound on the bytes the work needs.
 
 library: the codec library (the port's scalar Decoder, MultistreamDecoder,
 Encoder, Ogg Opus and the CLI) on the card's host, after the multistream
@@ -284,6 +287,12 @@ MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
 ENC_STEPS, ENC_CPU_STREAMS, ENC_SNR_TOL_DB = 4, 4, 0.5
 ENC_P_MAX, ENC_N_MAX, ENC_T_MAX = 160, 176, 128
 PVQ_TRIP_CYCLES = 4 * (3 + 8 + 1)
+# pvq_search's width classes (the kernel's row list order) as n ranges, and
+# the kernel time of the padded design it replaced on the recorded encode
+# step 0 (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), restated against
+# the packed layout's bound.
+PVQ_CLASS_WIDTHS = ((33, 176), (17, 32), (9, 16), (1, 8))
+PVQ_PADDED_KERNEL_MS = 0.1702
 # The multichip phase: the plan, mixed and multistream paths split over
 # torch.cuda.device_count() NCCL ranks; the gathered ring within the
 # reference's sharded allowance (tests/test_mesh_serve.py:81,190) of the
@@ -2223,7 +2232,9 @@ def pvq_inputs(seed: int, batch: int, channels: int, dev):
     prefill collapses |x| to e1; equal |x| everywhere, ties (4); K = 200 on
     n = 176, one leaf's prefill leaving 148 pulses, so that 128 trips leave
     20 unplaced (5); every band mid/side (6) or an intensity mix (7).
-    Returns [x, band_ops, leaves] on `dev`."""
+    Stream 0 also holds a leaf at each edge of the kernel's width classes
+    (n = 1, 8, 9, 16, 17, 32, 33, 64, 65, 176), with K below and above n / 2,
+    on both planes.  Returns [x, band_ops, leaves] on `dev`."""
     rng = np.random.default_rng(seed)
     n2, P = 960, ENC_P_MAX
     x = (rng.standard_normal((batch, channels, n2)) * 0.1).astype(np.float32)
@@ -2243,7 +2254,10 @@ def pvq_inputs(seed: int, batch: int, channels: int, dev):
 
     sizes = [(1, 1), (1, 3), (2, 1), (2, 2), (2, 5), (3, 1), (3, 2), (3, 7), (176, 40),
              (176, 88), (176, 89), (176, 128)]
-    put(0, [(p, 200 + 7 * i, nn, k) for i, (nn, k) in enumerate(sizes) for p in (0, 1)])
+    edges = [(nn, k) for nn in (1, 8, 9, 16, 17, 32, 33, 64, 65, 176)
+             for k in (max(1, nn // 4), min(128, nn // 2 + 1))]
+    put(0, [(p, 200 + 7 * i, nn, k) for i, (nn, k) in enumerate(sizes + edges)
+            for p in (0, 1)])
     x[1, :, :300] = 0.0
     put(1, [(p, o, nn, k) for p in (0, 1) for o, nn, k in
             ((0, 176, 100), (5, 176, 30), (60, 64, 40), (100, 7, 1), (120, 2, 2))])
@@ -2265,24 +2279,48 @@ def pvq_inputs(seed: int, batch: int, channels: int, dev):
     return [torch.tensor(a, device=dev) for a in (x, ops, lv)]
 
 
-def check_pvq(x, ops, leaves, label: str) -> dict:
-    """pvq_search vs its plain version: iy and left equal, every row.
-    Returns the rows, the trips the leaves need and the unplaced pulses."""
-    from opus_tpu_torch.dsp.pvq_search import _prefill, _pvq_search_ref, pvq_search
+def pvq_one_class(seed: int, batch: int, channels: int, cls: int, dev):
+    """pvq_inputs with every used leaf's n drawn anew inside width class
+    `cls` of PVQ_CLASS_WIDTHS, K drawn as pvq_inputs draws it: a batch in
+    which every other class is empty."""
+    x, ops, lv = (t.numpy() for t in pvq_inputs(seed, batch, channels, "cpu"))
+    rng = np.random.default_rng(seed + 1000)
+    lo, hi = PVQ_CLASS_WIDTHS[cls]
+    used = lv[..., 2] > 0
+    n = rng.integers(lo, hi + 1, used.shape)
+    lv[..., 3] = np.where(used, np.minimum(128, 1 + (rng.uniform(0, 1.5, n.shape) * n)
+                                           .astype(int)), lv[..., 3])
+    lv[..., 2] = np.where(used, n, 0)
+    return [torch.tensor(a, device=dev) for a in (x, ops, lv)]
 
-    iy, left = pvq_search(x, ops, leaves)
-    want_iy, want_left = _pvq_search_ref(x, ops, leaves)
+
+def check_pvq(x, ops, leaves, label: str) -> dict:
+    """pvq_search vs its plain version: the packed int16 iy equal, pulse for
+    pulse, and left equal on every row.  Returns the rows, the leaves by
+    width class, the trips the leaves need and the unplaced pulses."""
+    from opus_tpu_torch.dsp.pvq_search import (_prefill, _pvq_search_ref, leaf_order,
+                                               pvq_search, unpack)
+
+    order = leaf_order(leaves.cpu().numpy(), ENC_N_MAX)
+    rows = torch.from_numpy(order.rows).to(x.device)
+    iy, left = pvq_search(x, ops, leaves, rows, order.counts, order.total)
+    want_pad, want_left = _pvq_search_ref(x, ops, leaves)
     trips = _prefill(x, ops, leaves, 3, ENC_N_MAX)[4].clamp(0, ENC_T_MAX)
     torch.cuda.synchronize()
-    diff = int((iy != want_iy).any(-1).sum()) + int((left != want_left).sum())
+    if iy.dtype != torch.int16 or tuple(iy.shape) != (order.total,):
+        raise AssertionError(f"pvq_search gave iy {iy.dtype} {tuple(iy.shape)}, not int16 "
+                             f"({order.total},) ({label})")
+    diff = (int((unpack(iy, leaves) != want_pad).any(-1).sum())
+            + int((left != want_left).sum()))
     valid = int((leaves[..., 2] > 0).sum())
-    out = {"rows": leaves.shape[0] * leaves.shape[1], "valid": valid,
+    out = {"rows": leaves.shape[0] * leaves.shape[1], "valid": valid, "classes": order.counts,
            "max_trips": int(trips.max()), "trips": int(trips.sum()),
-           "unplaced": int(left.sum()), "pulses": int(iy.abs().sum())}
-    print(f"kernel pvq_search {label}: x {tuple(x.shape)}, {out['rows']} rows ({valid} leaves), "
-          f"{out['pulses']} pulses, trips needed {out['trips']} (longest {out['max_trips']}), "
-          f"unplaced after {ENC_T_MAX} trips {out['unplaced']}; rows differing from the plain "
-          f"version: {diff}")
+           "unplaced": int(left.sum()), "pulses": int(iy.abs().sum()), "iy_bytes": iy.numel() * 2}
+    print(f"kernel pvq_search {label}: x {tuple(x.shape)}, {out['rows']} rows ({valid} leaves; "
+          f"by width class >32 / 17-32 / 9-16 / 1-8: {order.counts}), {out['pulses']} pulses "
+          f"in {out['iy_bytes']} B packed, trips needed {out['trips']} (longest "
+          f"{out['max_trips']}), unplaced after {ENC_T_MAX} trips {out['unplaced']}; rows "
+          f"differing from the plain version: {diff}")
     if diff:
         raise AssertionError(f"pvq_search differs from its plain version on {diff} rows "
                              f"({label})")
@@ -2291,11 +2329,17 @@ def check_pvq(x, ops, leaves, label: str) -> dict:
 
 def pvq_phase(dev, where: str) -> None:
     """pvq_search vs its plain version on the synthetic leaves, stereo and
-    mono."""
+    mono, then on a batch of each width class alone, stereo and mono."""
     stereo = check_pvq(*pvq_inputs(60, 64, 2, dev), "synthetic stereo")
     if stereo["unplaced"] == 0:
         raise AssertionError("the synthetic leaves left no pulse unplaced")
     check_pvq(*pvq_inputs(61, 64, 1, dev), "synthetic mono")
+    for cls, (lo, hi) in enumerate(PVQ_CLASS_WIDTHS):
+        for channels in (2, 1):
+            got = check_pvq(*pvq_one_class(62 + cls, 16, channels, cls, dev),
+                            f"synthetic n {lo}-{hi} only, C={channels}")
+            if sum(1 for c in got["classes"] if c) != 1:
+                raise AssertionError(f"the n {lo}-{hi} batch spans classes {got['classes']}")
 
 
 def music_pcm(batch: int, steps: int, seed: int = 9) -> np.ndarray:
@@ -2329,45 +2373,65 @@ def best_snr(decoded: np.ndarray, ref: np.ndarray) -> float:
     return best
 
 
-def pvq_bytes(x, ops, leaves) -> int:
-    """Bytes pvq_search must move for these inputs: the positions of x its
-    leaves cover (every channel plane), the band ops of the streams with a
-    leaf, the leaf table, and the padded iy and left written."""
+def pvq_bytes(x, ops, leaves) -> dict:
+    """Bytes pvq_search must move for these inputs, by part: the positions
+    of x its leaves cover (every channel plane), the band ops of the
+    streams with a leaf, the used rows of the leaf table, the row list
+    with the starts, the packed int16 iy and left ([B, P] int32, 0 on the
+    unused rows) written; no padding.  "padded" is what the padded
+    layout's bound counted for the same inputs: the whole leaf table and
+    the padded int32 iy and left."""
+    from opus_tpu_torch.dsp.pvq_search import leaf_order
+
     B, C, n2 = x.shape
     lv = leaves.cpu().numpy().astype(np.int64)
+    order = leaf_order(lv, ENC_N_MAX)
     b, p = np.nonzero(lv[..., 2] > 0)
     off, n = lv[b, p, 1], lv[b, p, 2]
     cover = np.zeros((B, n2 + 1), np.int64)  # +1 at a span's start, -1 past its end
     np.add.at(cover, (b, np.clip(off, 0, n2)), 1)
     np.add.at(cover, (b, np.clip(off + n, 0, n2)), -1)
     covered = int((np.cumsum(cover, axis=1)[:, :n2] > 0).sum())
-    streams = len(np.unique(b))
-    return (covered * C * 4 + streams * 21 * 16 + lv.size * 4
-            + lv.shape[0] * lv.shape[1] * (ENC_N_MAX + 1) * 4)
+    parts = {"x": covered * C * 4, "band_ops": len(np.unique(b)) * 21 * 16,
+             "leaf_rows": len(b) * 16, "row_list": order.rows.nbytes, "iy": order.total * 2,
+             "left": lv.shape[0] * lv.shape[1] * 4}
+    needed = sum(parts.values())
+    padded = (parts["x"] + parts["band_ops"] + lv.size * 4
+              + lv.shape[0] * lv.shape[1] * (ENC_N_MAX + 1) * 4)
+    return {"needed": needed, "parts": parts, "padded": padded}
 
 
 def pvq_times(x, ops, leaves, need: dict) -> dict:
     """ms of the wrapper, the bare kernel launch on C arguments prepared in
-    advance (also as one replay of a CUDA graph) and the plain version,
-    with the bound: the bytes these inputs need (pvq_bytes) over the HBM
-    rate, or the longest leaf's trips (need["max_trips"]) at PVQ_TRIP_CYCLES
-    each, whichever is larger.  Two output copies (230 MB) alternate."""
+    advance (also as one replay of a CUDA graph) and the plain version
+    (packed), with the bound: the bytes these inputs need (pvq_bytes) over
+    the HBM rate, or the longest leaf's trips (need["max_trips"]) at
+    PVQ_TRIP_CYCLES each, whichever is larger.  Two output copies
+    alternate; the inputs are read from the L2 when they fit (about 10 MB
+    at B = 1,024: x at the covered positions is most of it)."""
     from opus_tpu_torch import _build
     from opus_tpu_torch.dsp import pvq_search as pq
 
-    B, P = leaves.shape[:2]
-    outs = [(torch.empty((B, P, ENC_N_MAX), dtype=torch.int32, device=x.device),
-             torch.empty((B, P), dtype=torch.int32, device=x.device)) for _ in range(2)]
-    prepared = [pq._kernel_args(x, ops, leaves, iy, left, 3, ENC_N_MAX, ENC_T_MAX)
-                for iy, left in outs]
+    order = pq.leaf_order(leaves.cpu().numpy(), ENC_N_MAX)
+    rows = torch.from_numpy(order.rows).to(x.device)
+    args = (x, ops, leaves, rows, order.counts, order.total)
+    outs = [(torch.empty(order.total, dtype=torch.int16, device=x.device),
+             torch.empty(leaves.shape[:2], dtype=torch.int32, device=x.device)) for _ in range(2)]
+    prepared = [pq._kernel_args(*args, iy, left, 3, ENC_N_MAX, ENC_T_MAX) for iy, left in outs]
     nbytes = pvq_bytes(x, ops, leaves)
-    bound, by = chain_bound_ms(nbytes, need["max_trips"] * PVQ_TRIP_CYCLES)
-    return {"ms": best_ms(lambda: pq.pvq_search(x, ops, leaves), 10),
+    bound, by = chain_bound_ms(nbytes["needed"], need["max_trips"] * PVQ_TRIP_CYCLES)
+
+    def plain():
+        iy, left = pq._pvq_search_ref(x, ops, leaves)
+        return pq.pack(iy, leaves), left
+
+    return {"ms": best_ms(lambda: pq.pvq_search(*args), 10),
             "kernel_ms": best_ms(bare("opus_pvq_search", prepared), 10),
             "graph_ms": graph_ms(_build.library().opus_pvq_search, prepared, 10),
-            "plain_ms": cuda_ms(lambda: pq._pvq_search_ref(x, ops, leaves), 1),
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": cuda_ms(plain, 1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes["needed"],
+            "bytes_parts": nbytes["parts"], "bytes_padded": nbytes["padded"],
+            "bytes_ms": nbytes["needed"] / HBM_BYTES_PER_S * 1e3,
             "chain_ms": need["max_trips"] * PVQ_TRIP_CYCLES / CLOCK_HZ * 1e3}
 
 
@@ -2382,13 +2446,15 @@ def encode_path(dev, where: str) -> dict:
     ranges) and their SNR against the input must lie within ENC_SNR_TOL_DB
     of the port's CPU run of the same PCM at B=4.  The search's inputs of
     the first step are recorded: the kernel must equal its plain version on
-    all B x 160 rows.  Prints the rate end to end (host clock around
-    encode_step, median of the timed steps), the host ms a step by phase,
-    the device plane (analyze + search on resident inputs, CUDA events), the
-    iy download and the kernel's times and bound."""
+    all B x 160 rows, and the uploaded row list must be the table's
+    leaf_order.  Prints the rate end to end (host clock around encode_step,
+    median of the timed steps), the host ms a step by phase, the device plane
+    (analyze + search on resident inputs, CUDA events), the packed iy
+    download and the kernel's times and bound."""
     from opus_tpu_torch.batch.encode_pipeline import BatchedPlanEncoder
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
     from opus_tpu_torch.celt.decoder import CeltDecoder
+    from opus_tpu_torch.dsp.pvq_search import leaf_order
 
     pcm = music_pcm(B, ENC_STEPS)
     enc = BatchedPlanEncoder(B, C, 96000, device=dev)
@@ -2396,10 +2462,11 @@ def encode_path(dev, where: str) -> dict:
     rec = {}
     real_search = enc._srch
 
-    def search(x, ops, leaves):
+    def search(x, ops, leaves, rows, counts, total):
         if not rec:
-            rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone())
-        return real_search(x, ops, leaves)
+            rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone(), rows=rows.clone(),
+                       counts=counts, total=total)
+        return real_search(x, ops, leaves, rows, counts, total)
 
     enc._srch = search
     counters = kernel_counters()
@@ -2452,6 +2519,11 @@ def encode_path(dev, where: str) -> dict:
         snr.append(s_card)
 
     real = check_pvq(rec["x"], rec["ops"], rec["leaves"], f"recorded encode step 0 (B={B})")
+    want = leaf_order(rec["leaves"].cpu().numpy(), ENC_N_MAX)
+    if not (np.array_equal(rec["rows"].cpu().numpy(), want.rows) and rec["counts"] == want.counts
+            and rec["total"] == want.total):
+        raise AssertionError("encode: the row list the encoder uploaded is not its leaf "
+                             "table's leaf_order")
     timed = walls[1:]
     rate = B * FRAME / 48000.0 / statistics.median(timed)
     host = {k: statistics.median(p[k] for p in phases[1:])
@@ -2463,22 +2535,28 @@ def encode_path(dev, where: str) -> dict:
     pcm_d = torch.from_numpy(np.ascontiguousarray(pcm[1])).to(dev)
     im, pm = enc._in_mem.clone(), enc._pm.clone()
     x, ops, leaves = rec["x"], rec["ops"], rec["leaves"]
-    dev_ms = cuda_ms(lambda: real_search(enc._ana(pcm_d, im, pm)[0], ops, leaves), 10)
-    iy = real_search(x, ops, leaves)[0]
+    order = (rec["rows"], rec["counts"], rec["total"])
+    dev_ms = cuda_ms(lambda: real_search(enc._ana(pcm_d, im, pm)[0], ops, leaves, *order), 10)
+    iy = real_search(x, ops, leaves, *order)[0]
     pinned = torch.empty(iy.shape, dtype=iy.dtype, pin_memory=True)
     iy_ms = cuda_ms(lambda: pinned.copy_(iy, non_blocking=True), 10)
     t = pvq_times(x, ops, leaves, real)
     print(f"encode device plane B={B}: analyze + search on resident inputs {dev_ms} ms a step "
-          f"(CUDA events) = {B * 0.02 / dev_ms * 1e3} audio_s_per_s; iy download "
-          f"({iy.numel() * 4} B into pinned memory, one copy) {iy_ms} ms ({where})")
-    print(f"time pvq_search recorded step (B={B}, 160 rows a stream): wrapper_ms={t['ms']} "
-          f"kernel_alone_ms={t['kernel_ms']} cuda_graph_ms_per_launch={t['graph_ms']} "
-          f"plain_ms={t['plain_ms']} bound_ms={t['bound_ms']} ({t['bound_by']}; bytes needed "
-          f"{t['bytes']} -> {t['bytes_ms']} ms; longest leaf {real['max_trips']} trips x "
-          f"{PVQ_TRIP_CYCLES} cycles -> {t['chain_ms']} ms) share_of_bound="
-          f"{t['bound_ms'] / t['kernel_ms']} ({where})")
+          f"(CUDA events) = {B * 0.02 / dev_ms * 1e3} audio_s_per_s; iy download (packed int16, "
+          f"{iy.numel() * iy.element_size()} B into pinned memory, one copy; padded int32 it was "
+          f"{B * ENC_P_MAX * ENC_N_MAX * 4} B) {iy_ms} ms ({where})")
+    print(f"time pvq_search recorded step (B={B}, 160 rows a stream, leaves by width class "
+          f"{real['classes']}): wrapper_ms={t['ms']} kernel_alone_ms={t['kernel_ms']} "
+          f"cuda_graph_ms_per_launch={t['graph_ms']} plain_ms={t['plain_ms']} bound_ms="
+          f"{t['bound_ms']} ({t['bound_by']}; bytes needed {t['bytes']} {t['bytes_parts']} -> "
+          f"{t['bytes_ms']} ms; longest leaf {real['max_trips']} trips x {PVQ_TRIP_CYCLES} "
+          f"cycles -> {t['chain_ms']} ms) share_of_bound={t['bound_ms'] / t['kernel_ms']}; the "
+          f"padded kernel's {PVQ_PADDED_KERNEL_MS} ms against the same bound: share "
+          f"{t['bound_ms'] / PVQ_PADDED_KERNEL_MS} (its own bound counted {t['bytes_padded']} B) "
+          f"({where})")
     return {"launches": launches, "chunks": [], "rate": rate, "host_ms": host,
-            "dev_ms": dev_ms, "iy_ms": iy_ms, "times": t, "real": real, "snr": snr}
+            "dev_ms": dev_ms, "iy_ms": iy_ms, "iy_bytes": iy.numel() * iy.element_size(),
+            "times": t, "real": real, "snr": snr}
 
 
 def packet_kind(pkt: bytes) -> str:
@@ -2848,7 +2926,7 @@ def main() -> int:
           f"(host ms a step: plan {encode['host_ms']['plan']}, emit {encode['host_ms']['emit']}, "
           f"fallback {encode['host_ms']['fallback']}); device plane {encode['dev_ms']} ms a step "
           f"= {B * 0.02 / encode['dev_ms'] * 1e3} audio_s_per_s; iy download {encode['iy_ms']} "
-          f"ms ({where})")
+          f"ms ({encode['iy_bytes']} B packed) ({where})")
     print("library summary: " + json.dumps({
         path: {"worst_max_abs_err": v["worst_err"], "lowest_rfc8251_score": v["lowest_score"],
                "final_ranges_equal": f"{v['ranges_equal']} of {v['decoded']}",
@@ -2972,10 +3050,14 @@ def main() -> int:
                   f"{encode['real']['valid']} leaves, longest {encode['real']['max_trips']} "
                   f"trips)",
          "bound_note": f"max(bytes needed {pvq_t['bytes']} (x at the positions the leaves "
-                       f"cover, band ops, leaf table, the padded iy and left written) at 3.35 "
-                       f"TB/s = {pvq_t['bytes_ms']} ms, the longest leaf's {encode['real']['max_trips']} "
-                       f"trips x {PVQ_TRIP_CYCLES} cycles at 1.98 GHz = {pvq_t['chain_ms']} ms)",
-         "kernel_ms": pvq_t["kernel_ms"], "graph_ms": pvq_t["graph_ms"]},
+                       f"cover, band ops, the used leaf rows, the row list, the packed int16 iy "
+                       f"and left written) at 3.35 TB/s = {pvq_t['bytes_ms']} ms, the longest "
+                       f"leaf's {encode['real']['max_trips']} trips x {PVQ_TRIP_CYCLES} cycles "
+                       f"at 1.98 GHz = {pvq_t['chain_ms']} ms)",
+         "kernel_ms": pvq_t["kernel_ms"], "graph_ms": pvq_t["graph_ms"],
+         "padded_kernel_ms": PVQ_PADDED_KERNEL_MS,
+         "padded_kernel_share_of_bound": pvq_t["bound_ms"] / PVQ_PADDED_KERNEL_MS,
+         "iy_bytes": encode["iy_bytes"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

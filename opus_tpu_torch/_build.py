@@ -92,7 +92,7 @@ def library() -> ctypes.CDLL:
     lib.opus_silk_synth.restype = i
     lib.opus_silk_synth.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.opus_pvq_search.restype = i
-    lib.opus_pvq_search.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.opus_pvq_search.argtypes = [p] * 6 + [i] * 12 + [p]
     return lib
 
 

@@ -1,5 +1,5 @@
 """The encode plane's greedy PVQ search: the CUDA kernel's wrapper and its
-plain version.
+plain version, and the packed layout of the pulses.
 
 `pvq_search` computes what the reference's `make_encode_search` computes
 (opus_tpu/dsp/encode_exec.py:165): for every leaf of the host's leaf
@@ -9,14 +9,26 @@ pulses by the greedy projection search of libopus's op_pvq_search (the
 projection prefill when K > n / 2, then one pulse a trip at the first
 maximum of (xy + |x_j|)^2 / (yy + 1 + 2 iy_j)).
 
+The pulses are packed.  A leaf of the table [B, P, 4] (plane, offset, n,
+K; n == 0 an unused row) has the width min(n, n_max); `iy` is one flat
+int16 buffer of every used leaf's signed pulses, stream by stream and
+within a stream in plan order (row p ascending), so leaf (b, p) starts
+at the exclusive cumulative sum of the widths before it.  `leaf_order`
+makes, with one numpy pass over the table, the row list the kernel
+walks: (b * P + p, start) of every used leaf, grouped into the width
+classes of CLASS_TILES.  `pack` / `unpack` convert between this layout
+and the reference's padded [B, P, n_max]; `PackedRows` gives one
+stream's rows as the emit pass reads them.
+
 It is not a TPU kernel: the reference runs the trips as a
 `lax.while_loop` (:265) of up to t_max trips over the whole [B, P, NMAX]
 leaf area, whose exit test `any(left > 0)` would cost eager torch a
 device-to-host read a trip.  On a CUDA tensor `pvq_search` launches one
-hand-written kernel for the whole batch (csrc/pvq.cu, one warp a leaf,
-each leaf its own loop), counts the launch, and raises if it does not
-build or launch.  On a CPU tensor it runs `_pvq_search_ref`, a fixed loop
-of t_max trips in plain torch.
+hand-written kernel for the whole batch (csrc/pvq.cu: a leaf of width <=
+8, 16 or 32 on a tile of that many lanes, a wider one on a warp; each
+leaf its own loop; unused rows launch nothing), counts the launch, and
+raises if it does not build or launch.  On a CPU tensor it packs
+`_pvq_search_ref`, a fixed loop of t_max trips in plain torch.
 
 Both fix every rounding the same way, so that kernel and plain version
 agree pulse for pulse: each product, sum and quotient is one IEEE float32
@@ -24,20 +36,23 @@ operation (the quotient correctly rounded, never a multiply by a
 reciprocal); the only order-dependent sums, sum |x| and xy of the
 prefill, are taken in the kernel's lane order (`_lane_sum`: lane l holds
 positions l, l + 32, ..., summed in that order, then a butterfly over
-the 32 lane sums); every other sum is of integers or of a one-hot, and
-exact.  The reference sums in XLA's order, so the plain version equals
-it up to that rounding.
+the 32 lane sums; a tile of w lanes skips the levels whose partners
+hold only zeros, which gives the same sums); every other sum is of
+integers or of a one-hot, and exact.  The reference sums in XLA's order,
+so the plain version equals it up to that rounding.
 
 `left`: a leaf with left0 = K - (prefill pulses) > 0 places min(left0,
 t_max) pulses and returns max(left0 - t_max, 0), as the reference does
-(t_max = 128 < NMAX = 176 is the reference's, kept).  A leaf whose
-prefill overshot K would return 0 here, and in the reference only if some
-leaf of the batch ran a trip; no batch shows it: the prefill places at
-most floor of a sum within a few float32 roundings of K + 0.8, so it
-overshoots only for K of about 10^4, and a CELT leaf has K <= 128.
+(t_max = 128 < NMAX = 176 is the reference's, kept); an unused row 0.  A
+leaf whose prefill overshot K would return 0 here, and in the reference
+only if some leaf of the batch ran a trip; no batch shows it: the prefill
+places at most floor of a sum within a few float32 roundings of K + 0.8,
+so it overshoots only for K of about 10^4, and a CELT leaf has K <= 128.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,9 +61,85 @@ from ..celt import modes
 
 NB = modes.NB_E_BANDS
 LANES = 32
-SLOTS = 6  # positions a lane holds in the kernel: NMAX <= 192
+SLOTS = 6  # positions a lane of the widest class holds in the kernel: NMAX <= 192
+#: lanes a leaf takes in each width class, in the row list's order: wider
+#: than 32 (ceil(n / 32) slots a lane), 17-32, 9-16, 1-8
+CLASS_TILES = (32, 32, 16, 8)
 EPSILON = float(np.float32(1e-15))
 RT2 = float(np.float32(np.sqrt(0.5)))
+
+
+class LeafOrder(NamedTuple):
+    """The packed layout of one leaf table (`leaf_order`)."""
+
+    rows: np.ndarray  # [R, 2] int32: (b * P + p, start in iy) of the used leaves, by class
+    counts: tuple  # the used leaves of each class of CLASS_TILES
+    starts: np.ndarray  # [B, P] int64: each leaf's first pulse in iy
+    widths: np.ndarray  # [B, P] int64: min(n, n_max), 0 on an unused row
+    total: int  # the pulses of iy
+
+
+def leaf_order(leaves: np.ndarray, n_max: int = 176) -> LeafOrder:
+    """The packed layout of leaves [B, P, 4] (numpy): the starts are the
+    exclusive cumulative sum of the widths in (b, p) order; the row list
+    holds every used row once, grouped by class and in row order within
+    one."""
+    B, P = leaves.shape[:2]
+    widths = np.clip(leaves[..., 2].reshape(-1).astype(np.int64), 0, n_max)
+    ends = np.cumsum(widths)
+    starts = ends - widths
+    used = np.flatnonzero(widths)
+    cls = 3 - np.searchsorted(np.array([8, 16, 32]), widths[used], side="left")
+    rows = used[np.argsort(cls, kind="stable")]
+    return LeafOrder(np.stack([rows, starts[rows]], -1).astype(np.int32),
+                     tuple(int(c) for c in np.bincount(cls, minlength=4)),
+                     starts.reshape(B, P), widths.reshape(B, P),
+                     int(ends[-1]) if ends.size else 0)
+
+
+def _packed_mask(leaves, n_max: int):
+    """[B, P, n_max] bool: the positions the packed layout keeps."""
+    n = leaves[..., 2].to(torch.int64).clamp(max=n_max)
+    return torch.arange(n_max, device=leaves.device) < n[..., None]
+
+
+def pack(iy, leaves, n_max: int = 176):
+    """Padded iy [B, P, n_max] -> the packed int16 iy of these leaves."""
+    return iy[_packed_mask(leaves, n_max)].to(torch.int16)
+
+
+def unpack(iy, leaves, n_max: int = 176):
+    """Packed iy -> the padded [B, P, n_max] int32 (zero past each width
+    and on unused rows)."""
+    mask = _packed_mask(leaves, n_max)
+    out = torch.zeros(mask.shape, dtype=torch.int32, device=iy.device)
+    out[mask] = iy.to(torch.int32)
+    return out
+
+
+class PackedRows:
+    """Stream b's rows of a packed iy (numpy) as the emit pass reads them:
+    len() runs to the stream's last used row, so emit's iterator stops
+    there and fills zeros past it, and row r is padded to n_max: its
+    leaf's pulses, then zeros, as the padded layout's row."""
+
+    def __init__(self, flat: np.ndarray, order: LeafOrder, b: int, n_max: int):
+        self._flat = flat
+        self._starts, self._widths = order.starts[b], order.widths[b]
+        used = np.flatnonzero(self._widths)
+        self._count = int(used[-1]) + 1 if used.size else 0
+        self._n_max = n_max
+
+    def __len__(self) -> int:
+        return self._count
+
+    def __getitem__(self, r: int) -> np.ndarray:
+        if not 0 <= r < self._count:
+            raise IndexError(r)
+        s, w = self._starts[r], self._widths[r]
+        row = np.zeros(self._n_max, self._flat.dtype)
+        row[:w] = self._flat[s : s + w]
+        return row
 
 
 def _lane_sum(v):
@@ -133,16 +224,21 @@ def _pvq_search_ref(x, band_ops, leaves, lm: int = 3, n_max: int = 176, t_max: i
     return out, left.to(torch.int32)
 
 
-def _check(x, band_ops, leaves, lm: int, n_max: int, t_max: int) -> None:
+def _check(x, band_ops, leaves, rows, counts, total: int, lm: int, n_max: int,
+           t_max: int) -> None:
     if x.dim() != 3 or x.shape[1] not in (1, 2) or x.shape[2] != modes.SHORT_MDCT_SIZE << lm:
         raise ValueError(f"x must be [B, 1 or 2, {modes.SHORT_MDCT_SIZE << lm}], got "
                          f"{tuple(x.shape)}")
     B = x.shape[0]
     if leaves.dim() != 3 or leaves.shape[0] != B or leaves.shape[2] != 4:
         raise ValueError(f"leaves must be [{B}, P, 4], got {tuple(leaves.shape)}")
+    if len(counts) != len(CLASS_TILES) or min(counts) < 0 or total < 0:
+        raise ValueError(f"counts must be {len(CLASS_TILES)} leaf counts and total >= 0, got "
+                         f"{counts}, {total}")
     for name, t, shape, dtype in (("x", x, tuple(x.shape), torch.float32),
                                   ("band_ops", band_ops, (B, NB, 4), torch.float32),
-                                  ("leaves", leaves, tuple(leaves.shape), torch.int32)):
+                                  ("leaves", leaves, tuple(leaves.shape), torch.int32),
+                                  ("rows", rows, (sum(counts), 2), torch.int32)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"{name} must be {dtype} {shape} on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -153,39 +249,48 @@ def _check(x, band_ops, leaves, lm: int, n_max: int, t_max: int) -> None:
                          f"{n_max}, {t_max}")
 
 
-def _kernel_args(x, band_ops, leaves, iy, left, lm: int, n_max: int, t_max: int) -> tuple:
+def _kernel_args(x, band_ops, leaves, rows, counts, total: int, iy, left, lm: int, n_max: int,
+                 t_max: int) -> tuple:
     """The C arguments of one launch into iy, left on checked CUDA tensors,
     but the stream (which `_build.launch` adds)."""
     B, C, n2 = x.shape
-    return (x.data_ptr(), band_ops.data_ptr(), leaves.data_ptr(), iy.data_ptr(),
-            left.data_ptr(), B, leaves.shape[1], C, n2, 1 << lm, n_max, t_max)
+    return (x.data_ptr(), band_ops.data_ptr(), leaves.data_ptr(), rows.data_ptr(),
+            iy.data_ptr(), left.data_ptr(), B, leaves.shape[1], C, n2, lm, n_max, t_max,
+            *counts, total)
 
 
-def pvq_search(x, band_ops, leaves, lm: int = 3, n_max: int = 176, t_max: int = 128):
-    """Greedy PVQ search of every leaf: x [B, C, N2] float32 unit-normalised
-    spectra, band_ops [B, NB, 4] float32 (op, a1, a2, _: op 2 mid/side, 3
-    intensity mix a1 x0 + a2 x1, else the channel planes as they are),
-    leaves [B, P, 4] int32 (plane, flat offset, n, K; n == 0 an unused
-    row), all contiguous on one device.  Returns (iy [B, P, n_max] int32,
-    the signed pulses of each leaf in its leaf-local order and zero past
-    n, left [B, P] int32, the pulses t_max trips left unplaced).  A CUDA
+def pvq_search(x, band_ops, leaves, rows, counts, total: int, lm: int = 3, n_max: int = 176,
+               t_max: int = 128):
+    """Greedy PVQ search of every used leaf: x [B, C, N2] float32
+    unit-normalised spectra, band_ops [B, NB, 4] float32 (op, a1, a2, _: op
+    2 mid/side, 3 intensity mix a1 x0 + a2 x1, else the channel planes as
+    they are), leaves [B, P, 4] int32 (plane, flat offset, n, K; n == 0 an
+    unused row), and the packed layout of that table (`leaf_order`): rows
+    [R, 2] int32 on the same device, counts and total on the host; all
+    contiguous.  Returns (iy [total] int16, the signed pulses packed in plan
+    order, left [B, P] int32, the pulses t_max trips left unplaced).  A CUDA
     tensor goes through the kernel (each launch adds one to
-    `pvq_search.launches`); a CPU tensor through `_pvq_search_ref`."""
-    _check(x, band_ops, leaves, lm, n_max, t_max)
+    `pvq_search.launches`; a table with no used leaf launches nothing); a
+    CPU tensor through `_pvq_search_ref`, packed."""
+    _check(x, band_ops, leaves, rows, counts, total, lm, n_max, t_max)
     if x.device.type == "cpu":
-        return _pvq_search_ref(x, band_ops, leaves, lm, n_max, t_max)
+        iy, left = _pvq_search_ref(x, band_ops, leaves, lm, n_max, t_max)
+        return pack(iy, leaves, n_max), left
     if x.device.type != "cuda":
         raise ValueError(f"pvq_search runs on cpu or cuda, not {x.device}")
-    if leaves.data_ptr() % 16:
-        raise ValueError("leaves must be 16-byte aligned (the kernel reads a row as int4)")
+    for name, t, align in (("band_ops", band_ops, 16), ("leaves", leaves, 16), ("rows", rows, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned (the kernel reads a row "
+                             f"as one vector)")
     from .. import _build
 
-    B, P = leaves.shape[:2]
-    iy = torch.empty((B, P, n_max), dtype=torch.int32, device=x.device)
-    left = torch.empty((B, P), dtype=torch.int32, device=x.device)
+    iy = torch.empty(total, dtype=torch.int16, device=x.device)
+    left = torch.empty(leaves.shape[:2], dtype=torch.int32, device=x.device)
     _build.launch("opus_pvq_search", x.device,
-                  _kernel_args(x, band_ops, leaves, iy, left, lm, n_max, t_max))
-    pvq_search.launches += 1
+                  _kernel_args(x, band_ops, leaves, rows, counts, total, iy, left, lm, n_max,
+                               t_max))
+    if sum(counts):
+        pvq_search.launches += 1
     return iy, left
 
 

@@ -21,8 +21,14 @@
   encoder give the JAX encoder's packets.
 * Two faults of the reference that the port keeps (ROADMAP Queue 3):
   t_max < NMAX, and the silence sentinel `plan_frame` never returns.
+* The packed layout (dsp/pvq_search.py): `pack` / `unpack` round trip the
+  plain search's padded pulses at every width-class edge; `leaf_order`
+  lists every used row once, grouped by class, with the exclusive
+  cumulative sum of the widths as starts; `PackedRows` gives the emit pass
+  the padded row's [:n] for every n and stops at the leaf count.
 * On the card (`cuda`, skipped here) the kernel equals the plain version
-  exactly, iy and left, on chip_smoke.py's synthetic leaves.
+  exactly, the packed iy and left, on chip_smoke.py's synthetic leaves
+  and on a batch of each width class alone.
 """
 
 from __future__ import annotations
@@ -116,8 +122,8 @@ def test_numpy_tables_equal_reference():
 
 
 def test_kernel_band_table_is_modes():
-    """csrc/pvq.cu's band edges are modes.E_BANDS (the kernel looks the
-    band of each position up there)."""
+    """csrc/pvq.cu's band edges are modes.E_BANDS (the kernel builds its
+    table of the band of each position from them at compile time)."""
     from opus_tpu_torch.celt import modes
 
     src = (ROOT / "opus_tpu_torch" / "csrc" / "pvq.cu").read_text()
@@ -161,14 +167,17 @@ def _hold_search_to_jax(x, band_ops, leaves, channels, label):
     SEARCH_EQUAL_SHARE of the leaves, left equal, a differing leaf with
     the same pulse count and a greedy score within SCORE_REL_TOL."""
     from opus_tpu.dsp.encode_exec import make_encode_search as jax_search
-    from opus_tpu_torch.dsp.pvq_search import _prefill, pvq_search
+    from opus_tpu_torch.dsp.pvq_search import _prefill, leaf_order, pvq_search, unpack
 
     jnp = _jnp()
     B, P = leaves.shape[:2]
     want_iy, want_left = (np.asarray(a) for a in jax_search(3, B, channels, p_max=P)(
         jnp.asarray(x), jnp.asarray(band_ops), jnp.asarray(leaves)))
     tx, tb, tl = (torch.from_numpy(np.array(a)) for a in (x, band_ops, leaves))
-    got_iy, got_left = (a.numpy() for a in pvq_search(tx, tb, tl))
+    order = leaf_order(np.asarray(leaves))
+    iy, left = pvq_search(tx, tb, tl, torch.from_numpy(order.rows), order.counts, order.total)
+    assert iy.dtype == torch.int16 and tuple(iy.shape) == (order.total,)
+    got_iy, got_left = unpack(iy, tl).numpy(), left.numpy()
     valid = leaves[..., 2] > 0
     differs = (got_iy != want_iy).any(-1)
     assert not (differs & ~valid).any()
@@ -246,6 +255,106 @@ def test_plain_search_matches_jax_on_synthetic_leaves(channels):
 
     x, band_ops, leaves = (t.numpy() for t in chip_smoke.pvq_inputs(60, 8, channels, "cpu"))
     _hold_search_to_jax(x, band_ops, leaves, channels, f"synthetic C={channels}")
+
+
+EDGES = (1, 8, 9, 16, 17, 32, 33, 64, 65, 176)  # the kernel's width-class edges
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_pack_round_trip(channels):
+    """pack then unpack gives the plain search's padded pulses, on
+    chip_smoke.py's synthetic leaves (every width-class edge in stream 0,
+    unused rows 140-159); the packed iy is int16, one value per used
+    position."""
+    import chip_smoke
+    from opus_tpu_torch.dsp.pvq_search import _pvq_search_ref, leaf_order, pack, unpack
+
+    x, band_ops, leaves = chip_smoke.pvq_inputs(60, 8, channels, "cpu")
+    assert set(EDGES) <= set(leaves[0, :, 2].tolist())
+    assert not leaves[:, 140:, 2].any()
+    iy, _left = _pvq_search_ref(x, band_ops, leaves)
+    packed = pack(iy, leaves)
+    assert packed.dtype == torch.int16
+    assert packed.numel() == leaf_order(leaves.numpy()).total
+    assert torch.equal(unpack(packed, leaves), iy)
+
+
+@pytest.mark.parametrize("cls", [None, 0, 1, 2, 3])
+def test_leaf_order(cls):
+    """The host's row list and starts: every used row once and no unused
+    row; grouped by class (>32, 17-32, 9-16, 1-8), row order within one;
+    starts the exclusive cumulative sum of min(n, 176) in plan order.  A
+    batch of one class leaves the others empty."""
+    import chip_smoke
+    from opus_tpu_torch.dsp.pvq_search import leaf_order
+
+    leaves = (chip_smoke.pvq_inputs(60, 8, 2, "cpu") if cls is None
+              else chip_smoke.pvq_one_class(62, 8, 2, cls, "cpu"))[2].numpy()
+    n = leaves[..., 2].reshape(-1)
+    width = np.where(n > 0, np.minimum(n, 176), 0)
+    order = leaf_order(leaves)
+    rows, starts = order.rows[:, 0], order.rows[:, 1]
+    assert order.rows.dtype == np.int32
+    assert sorted(rows.tolist()) == np.flatnonzero(n > 0).tolist()
+    want_cls = np.select([width > 32, width > 16, width > 8], [0, 1, 2], 3)[rows]
+    assert np.array_equal(want_cls, np.repeat(np.arange(4), order.counts))
+    for c in range(4):
+        assert np.all(np.diff(rows[want_cls == c]) > 0)
+    excl = np.concatenate([[0], np.cumsum(width)[:-1]])
+    assert np.array_equal(starts, excl[rows]) and order.total == width.sum()
+    assert np.array_equal(order.starts.reshape(-1), excl)
+    assert np.array_equal(order.widths.reshape(-1), width)
+    if cls is not None:
+        assert [bool(c) for c in order.counts] == [c == cls for c in range(4)]
+
+
+def test_packed_rows_read_as_padded():
+    """What emit_frame reads: for every row below the leaf count and every
+    n in 0..176, rows[r][:n] is the padded row's [:n]; its iterator over
+    range(len(rows)) stops at the leaf count (emit then codes zeros), where
+    the padded rows are zero.  A stream with no leaf has none."""
+    import chip_smoke
+    from opus_tpu_torch.dsp.pvq_search import PackedRows, _pvq_search_ref, leaf_order, pack
+
+    x, band_ops, leaves = chip_smoke.pvq_inputs(60, 8, 2, "cpu")
+    leaves[3] = 0  # a stream with no leaf (silence or the host fallback)
+    leaves[5, 30:] = 0  # and one with 30
+    padded, _left = _pvq_search_ref(x, band_ops, leaves)
+    padded = padded.numpy()
+    order = leaf_order(leaves.numpy())
+    flat = pack(torch.from_numpy(padded), leaves).numpy()
+    for b in range(leaves.shape[0]):
+        rows = PackedRows(flat, order, b, 176)
+        count = int((leaves[b, :, 2] > 0).sum())
+        assert len(rows) == count
+        assert not padded[b, count:].any()
+        for r in range(count):
+            row = rows[r]
+            assert row.dtype == np.int16
+            for n in range(177):
+                assert np.array_equal(row[:n], padded[b, r, :n]), (b, r, n)
+        it = iter(range(len(rows)))
+        assert [next(it) for _ in range(count)] == list(range(count))
+        with pytest.raises(StopIteration):
+            next(it)
+        with pytest.raises(IndexError):
+            rows[count]
+
+
+def test_pvq_search_rejects_a_bad_row_list():
+    """The wrapper checks the row list against the class counts."""
+    import chip_smoke
+    from opus_tpu_torch.dsp.pvq_search import leaf_order, pvq_search
+
+    x, band_ops, leaves = chip_smoke.pvq_inputs(60, 8, 2, "cpu")
+    order = leaf_order(leaves.numpy())
+    rows = torch.from_numpy(order.rows)
+    with pytest.raises(ValueError, match="rows"):
+        pvq_search(x, band_ops, leaves, rows[1:], order.counts, order.total)
+    with pytest.raises(ValueError, match="rows"):
+        pvq_search(x, band_ops, leaves, rows.to(torch.int64), order.counts, order.total)
+    with pytest.raises(ValueError, match="counts"):
+        pvq_search(x, band_ops, leaves, rows, order.counts[:3], order.total)
 
 
 def _libopus_decoder(channels):
@@ -415,18 +524,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cls", [None, 0, 1, 2, 3])
 @pytest.mark.parametrize("channels", [2, 1])
-def test_kernel_matches_plain_on_card(cuda_device, channels):
-    """pvq_search equals its plain version exactly (iy and left) on the
-    synthetic leaves, one launch a call."""
+def test_kernel_matches_plain_on_card(cuda_device, channels, cls):
+    """pvq_search equals its plain version exactly (the packed iy and left)
+    on the synthetic leaves (every width-class edge) and on a batch of one
+    width class, one launch a call."""
     import chip_smoke
-    from opus_tpu_torch.dsp.pvq_search import _pvq_search_ref, pvq_search
+    from opus_tpu_torch.dsp.pvq_search import _pvq_search_ref, leaf_order, pack, pvq_search
 
-    x, band_ops, leaves = chip_smoke.pvq_inputs(60 + channels, 64, channels, cuda_device)
+    if cls is None:
+        x, band_ops, leaves = chip_smoke.pvq_inputs(60 + channels, 64, channels, cuda_device)
+    else:
+        x, band_ops, leaves = chip_smoke.pvq_one_class(62 + cls, 64, channels, cls, cuda_device)
+    order = leaf_order(leaves.cpu().numpy())
+    rows = torch.from_numpy(order.rows).to(cuda_device)
     before = pvq_search.launches
-    iy, left = pvq_search(x, band_ops, leaves)
+    iy, left = pvq_search(x, band_ops, leaves, rows, order.counts, order.total)
     want_iy, want_left = _pvq_search_ref(x, band_ops, leaves)
     torch.cuda.synchronize()
     assert pvq_search.launches == before + 1
-    assert torch.equal(iy, want_iy) and torch.equal(left, want_left)
-    assert int(left.sum()) > 0  # the K = 200 leaf leaves pulses unplaced
+    assert torch.equal(iy, pack(want_iy, leaves)) and torch.equal(left, want_left)
+    if cls is None and channels == 2:
+        assert int(left.sum()) > 0  # the K = 200 leaf leaves pulses unplaced
