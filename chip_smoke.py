@@ -157,8 +157,9 @@ alone), then:
   of the first step's recorded inputs.  Prints the encode rate end to end,
   the host ms a step (plan, emit, fallback), the device plane (analyze +
   search on resident inputs, CUDA events), the packed iy download and its
-  bytes, and the kernel's times (wrapper, bare, CUDA-graph replay, plain)
-  with its bound on the bytes the work needs.
+  bytes, and the kernel's times (wrapper, bare with its inputs in the L2
+  as the encode step leaves them and with the L2 flushed first, CUDA-graph
+  replay, plain) with its bound on the bytes the work needs.
 
 library: the codec library (the port's scalar Decoder, MultistreamDecoder,
 Encoder, Ogg Opus and the CLI) on the card's host, after the multistream
@@ -287,12 +288,13 @@ MS_SESSIONS, MS_CHECKED_SESSIONS = 256, 64
 ENC_STEPS, ENC_CPU_STREAMS, ENC_SNR_TOL_DB = 4, 4, 0.5
 ENC_P_MAX, ENC_N_MAX, ENC_T_MAX = 160, 176, 128
 PVQ_TRIP_CYCLES = 4 * (3 + 8 + 1)
-# pvq_search's width classes (the kernel's row list order) as n ranges, and
-# the kernel time of the padded design it replaced on the recorded encode
-# step 0 (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), restated against
-# the packed layout's bound.
-PVQ_CLASS_WIDTHS = ((33, 176), (17, 32), (9, 16), (1, 8))
-PVQ_PADDED_KERNEL_MS = 0.1702
+# The recorded kernel time of the padded pvq_search that the packed one
+# replaced, on the same encode step 0 (PERF.md section 6: NVIDIA H100 80GB
+# HBM3, 700 W; not measured by this script), printed beside the packed
+# layout's bound.  L2_FLUSH_BYTES: the buffer written before a launch timed
+# with its inputs out of the 50 MB L2.
+PVQ_PADDED_RECORDED_MS = 0.1702
+L2_FLUSH_BYTES = 256 << 20
 # The multichip phase: the plan, mixed and multistream paths split over
 # torch.cuda.device_count() NCCL ranks; the gathered ring within the
 # reference's sharded allowance (tests/test_mesh_serve.py:81,190) of the
@@ -470,6 +472,11 @@ def graph_ms(fn, prepared: list, n: int = 40) -> float:
         with torch.cuda.graph(graph, stream=stream):
             for i in range(n):
                 fn(*prepared[i % len(prepared)], torch.cuda.current_stream().cuda_stream)
+    return replay_ms(graph) / n
+
+
+def replay_ms(graph) -> float:
+    """Device ms of a CUDA graph's replay: the best of 5, after one."""
     graph.replay()
     torch.cuda.synchronize()
     best = float("inf")
@@ -479,8 +486,32 @@ def graph_ms(fn, prepared: list, n: int = 40) -> float:
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / n)
+        best = min(best, start.elapsed_time(end))
     return best
+
+
+def l2_flushed_ms(fn, prepared: list, n: int = 10) -> float:
+    """Device ms a launch of the C entry fn whose inputs come from HBM: a
+    CUDA graph of n (write L2_FLUSH_BYTES, launch) pairs less one of the n
+    writes alone (replay_ms each); launches cycle through `prepared` as
+    `bare` does."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.Stream()
+    graphs = []
+    with torch.cuda.stream(stream):
+        if fn(*prepared[0], stream.cuda_stream) != 0:
+            raise RuntimeError("launch failed")
+        flush.zero_()
+        torch.cuda.synchronize()
+        for with_launch in (True, False):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                for i in range(n):
+                    flush.zero_()
+                    if with_launch:
+                        fn(*prepared[i % len(prepared)], torch.cuda.current_stream().cuda_stream)
+            graphs.append(graph)
+    return (replay_ms(graphs[0]) - replay_ms(graphs[1])) / n
 
 
 def postfilter_times(y, hist, n, lm, periods, gains, tapsets, chunk) -> dict:
@@ -2254,8 +2285,7 @@ def pvq_inputs(seed: int, batch: int, channels: int, dev):
 
     sizes = [(1, 1), (1, 3), (2, 1), (2, 2), (2, 5), (3, 1), (3, 2), (3, 7), (176, 40),
              (176, 88), (176, 89), (176, 128)]
-    edges = [(nn, k) for nn in (1, 8, 9, 16, 17, 32, 33, 64, 65, 176)
-             for k in (max(1, nn // 4), min(128, nn // 2 + 1))]
+    edges = [(nn, k) for nn in pvq_edges() for k in (max(1, nn // 4), min(128, nn // 2 + 1))]
     put(0, [(p, 200 + 7 * i, nn, k) for i, (nn, k) in enumerate(sizes + edges)
             for p in (0, 1)])
     x[1, :, :300] = 0.0
@@ -2279,13 +2309,23 @@ def pvq_inputs(seed: int, batch: int, channels: int, dev):
     return [torch.tensor(a, device=dev) for a in (x, ops, lv)]
 
 
+def pvq_edges() -> list:
+    """The leaf widths at the edges of pvq_search's width classes (the least
+    and greatest n of each) and of the widest class's slots (64, 65)."""
+    from opus_tpu_torch.dsp.pvq_search import LANES, class_ranges
+
+    return sorted({n for r in class_ranges(ENC_N_MAX) for n in r} | {2 * LANES, 2 * LANES + 1})
+
+
 def pvq_one_class(seed: int, batch: int, channels: int, cls: int, dev):
     """pvq_inputs with every used leaf's n drawn anew inside width class
-    `cls` of PVQ_CLASS_WIDTHS, K drawn as pvq_inputs draws it: a batch in
-    which every other class is empty."""
+    `cls` of pvq_search's class_ranges, K drawn as pvq_inputs draws it: a
+    batch in which every other class is empty."""
+    from opus_tpu_torch.dsp.pvq_search import class_ranges
+
     x, ops, lv = (t.numpy() for t in pvq_inputs(seed, batch, channels, "cpu"))
     rng = np.random.default_rng(seed + 1000)
-    lo, hi = PVQ_CLASS_WIDTHS[cls]
+    lo, hi = class_ranges(ENC_N_MAX)[cls]
     used = lv[..., 2] > 0
     n = rng.integers(lo, hi + 1, used.shape)
     lv[..., 3] = np.where(used, np.minimum(128, 1 + (rng.uniform(0, 1.5, n.shape) * n)
@@ -2298,12 +2338,11 @@ def check_pvq(x, ops, leaves, label: str) -> dict:
     """pvq_search vs its plain version: the packed int16 iy equal, pulse for
     pulse, and left equal on every row.  Returns the rows, the leaves by
     width class, the trips the leaves need and the unplaced pulses."""
-    from opus_tpu_torch.dsp.pvq_search import (_prefill, _pvq_search_ref, leaf_order,
-                                               pvq_search, unpack)
+    from opus_tpu_torch.dsp.pvq_search import (_prefill, _pvq_search_ref, class_ranges,
+                                               leaf_order, pvq_search, unpack)
 
     order = leaf_order(leaves.cpu().numpy(), ENC_N_MAX)
-    rows = torch.from_numpy(order.rows).to(x.device)
-    iy, left = pvq_search(x, ops, leaves, rows, order.counts, order.total)
+    iy, left = pvq_search(x, ops, leaves, order)
     want_pad, want_left = _pvq_search_ref(x, ops, leaves)
     trips = _prefill(x, ops, leaves, 3, ENC_N_MAX)[4].clamp(0, ENC_T_MAX)
     torch.cuda.synchronize()
@@ -2317,7 +2356,7 @@ def check_pvq(x, ops, leaves, label: str) -> dict:
            "max_trips": int(trips.max()), "trips": int(trips.sum()),
            "unplaced": int(left.sum()), "pulses": int(iy.abs().sum()), "iy_bytes": iy.numel() * 2}
     print(f"kernel pvq_search {label}: x {tuple(x.shape)}, {out['rows']} rows ({valid} leaves; "
-          f"by width class >32 / 17-32 / 9-16 / 1-8: {order.counts}), {out['pulses']} pulses "
+          f"by width class {class_ranges(ENC_N_MAX)}: {order.counts}), {out['pulses']} pulses "
           f"in {out['iy_bytes']} B packed, trips needed {out['trips']} (longest "
           f"{out['max_trips']}), unplaced after {ENC_T_MAX} trips {out['unplaced']}; rows "
           f"differing from the plain version: {diff}")
@@ -2329,12 +2368,15 @@ def check_pvq(x, ops, leaves, label: str) -> dict:
 
 def pvq_phase(dev, where: str) -> None:
     """pvq_search vs its plain version on the synthetic leaves, stereo and
-    mono, then on a batch of each width class alone, stereo and mono."""
-    stereo = check_pvq(*pvq_inputs(60, 64, 2, dev), "synthetic stereo")
-    if stereo["unplaced"] == 0:
-        raise AssertionError("the synthetic leaves left no pulse unplaced")
-    check_pvq(*pvq_inputs(61, 64, 1, dev), "synthetic mono")
-    for cls, (lo, hi) in enumerate(PVQ_CLASS_WIDTHS):
+    mono (in both, the K = 200 leaves must leave pulses unplaced), then on a
+    batch of each width class alone, stereo and mono."""
+    from opus_tpu_torch.dsp.pvq_search import class_ranges
+
+    for seed, channels in ((60, 2), (61, 1)):
+        got = check_pvq(*pvq_inputs(seed, 64, channels, dev), f"synthetic C={channels}")
+        if got["unplaced"] == 0:
+            raise AssertionError(f"the synthetic leaves (C={channels}) left no pulse unplaced")
+    for cls, (lo, hi) in enumerate(class_ranges(ENC_N_MAX)):
         for channels in (2, 1):
             got = check_pvq(*pvq_one_class(62 + cls, 16, channels, cls, dev),
                             f"synthetic n {lo}-{hi} only, C={channels}")
@@ -2378,9 +2420,7 @@ def pvq_bytes(x, ops, leaves) -> dict:
     of x its leaves cover (every channel plane), the band ops of the
     streams with a leaf, the used rows of the leaf table, the row list
     with the starts, the packed int16 iy and left ([B, P] int32, 0 on the
-    unused rows) written; no padding.  "padded" is what the padded
-    layout's bound counted for the same inputs: the whole leaf table and
-    the padded int32 iy and left."""
+    unused rows) written."""
     from opus_tpu_torch.dsp.pvq_search import leaf_order
 
     B, C, n2 = x.shape
@@ -2395,29 +2435,28 @@ def pvq_bytes(x, ops, leaves) -> dict:
     parts = {"x": covered * C * 4, "band_ops": len(np.unique(b)) * 21 * 16,
              "leaf_rows": len(b) * 16, "row_list": order.rows.nbytes, "iy": order.total * 2,
              "left": lv.shape[0] * lv.shape[1] * 4}
-    needed = sum(parts.values())
-    padded = (parts["x"] + parts["band_ops"] + lv.size * 4
-              + lv.shape[0] * lv.shape[1] * (ENC_N_MAX + 1) * 4)
-    return {"needed": needed, "parts": parts, "padded": padded}
+    return {"needed": sum(parts.values()), "parts": parts}
 
 
 def pvq_times(x, ops, leaves, need: dict) -> dict:
     """ms of the wrapper, the bare kernel launch on C arguments prepared in
-    advance (also as one replay of a CUDA graph) and the plain version
-    (packed), with the bound: the bytes these inputs need (pvq_bytes) over
-    the HBM rate, or the longest leaf's trips (need["max_trips"]) at
-    PVQ_TRIP_CYCLES each, whichever is larger.  Two output copies
-    alternate; the inputs are read from the L2 when they fit (about 10 MB
-    at B = 1,024: x at the covered positions is most of it)."""
+    advance (also as one replay of a CUDA graph, and with the L2 flushed
+    before each launch) and the plain version (packed), with the bound:
+    the bytes these inputs need (pvq_bytes) over the HBM rate, or the
+    longest leaf's trips (need["max_trips"]) at PVQ_TRIP_CYCLES each,
+    whichever is larger.  Two output copies alternate; but for the flushed
+    time the inputs are read from the L2, where they fit (about 10 MB at
+    B = 1,024: x at the covered positions is most of it) and where the
+    encode step leaves them."""
     from opus_tpu_torch import _build
     from opus_tpu_torch.dsp import pvq_search as pq
 
     order = pq.leaf_order(leaves.cpu().numpy(), ENC_N_MAX)
     rows = torch.from_numpy(order.rows).to(x.device)
-    args = (x, ops, leaves, rows, order.counts, order.total)
     outs = [(torch.empty(order.total, dtype=torch.int16, device=x.device),
              torch.empty(leaves.shape[:2], dtype=torch.int32, device=x.device)) for _ in range(2)]
-    prepared = [pq._kernel_args(*args, iy, left, 3, ENC_N_MAX, ENC_T_MAX) for iy, left in outs]
+    prepared = [pq._kernel_args(x, ops, leaves, rows, order, iy, left, 3, ENC_T_MAX)
+                for iy, left in outs]
     nbytes = pvq_bytes(x, ops, leaves)
     bound, by = chain_bound_ms(nbytes["needed"], need["max_trips"] * PVQ_TRIP_CYCLES)
 
@@ -2425,12 +2464,14 @@ def pvq_times(x, ops, leaves, need: dict) -> dict:
         iy, left = pq._pvq_search_ref(x, ops, leaves)
         return pq.pack(iy, leaves), left
 
-    return {"ms": best_ms(lambda: pq.pvq_search(*args), 10),
+    lib = _build.library().opus_pvq_search
+    return {"ms": best_ms(lambda: pq.pvq_search(x, ops, leaves, order.on(rows)), 10),
             "kernel_ms": best_ms(bare("opus_pvq_search", prepared), 10),
-            "graph_ms": graph_ms(_build.library().opus_pvq_search, prepared, 10),
+            "kernel_l2_flushed_ms": l2_flushed_ms(lib, prepared, 10),
+            "graph_ms": graph_ms(lib, prepared, 10),
             "plain_ms": cuda_ms(plain, 1),
             "bound_ms": bound, "bound_by": by, "bytes": nbytes["needed"],
-            "bytes_parts": nbytes["parts"], "bytes_padded": nbytes["padded"],
+            "bytes_parts": nbytes["parts"],
             "bytes_ms": nbytes["needed"] / HBM_BYTES_PER_S * 1e3,
             "chain_ms": need["max_trips"] * PVQ_TRIP_CYCLES / CLOCK_HZ * 1e3}
 
@@ -2462,11 +2503,11 @@ def encode_path(dev, where: str) -> dict:
     rec = {}
     real_search = enc._srch
 
-    def search(x, ops, leaves, rows, counts, total):
+    def search(x, ops, leaves, order):
         if not rec:
-            rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone(), rows=rows.clone(),
-                       counts=counts, total=total)
-        return real_search(x, ops, leaves, rows, counts, total)
+            rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone(),
+                       order=order.on(order.device_rows.clone()))
+        return real_search(x, ops, leaves, order)
 
     enc._srch = search
     counters = kernel_counters()
@@ -2519,9 +2560,9 @@ def encode_path(dev, where: str) -> dict:
         snr.append(s_card)
 
     real = check_pvq(rec["x"], rec["ops"], rec["leaves"], f"recorded encode step 0 (B={B})")
-    want = leaf_order(rec["leaves"].cpu().numpy(), ENC_N_MAX)
-    if not (np.array_equal(rec["rows"].cpu().numpy(), want.rows) and rec["counts"] == want.counts
-            and rec["total"] == want.total):
+    want, got = leaf_order(rec["leaves"].cpu().numpy(), ENC_N_MAX), rec["order"]
+    if not (np.array_equal(got.device_rows.cpu().numpy(), want.rows)
+            and got.counts == want.counts and got.total == want.total):
         raise AssertionError("encode: the row list the encoder uploaded is not its leaf "
                              "table's leaf_order")
     timed = walls[1:]
@@ -2534,26 +2575,26 @@ def encode_path(dev, where: str) -> dict:
 
     pcm_d = torch.from_numpy(np.ascontiguousarray(pcm[1])).to(dev)
     im, pm = enc._in_mem.clone(), enc._pm.clone()
-    x, ops, leaves = rec["x"], rec["ops"], rec["leaves"]
-    order = (rec["rows"], rec["counts"], rec["total"])
-    dev_ms = cuda_ms(lambda: real_search(enc._ana(pcm_d, im, pm)[0], ops, leaves, *order), 10)
-    iy = real_search(x, ops, leaves, *order)[0]
+    x, ops, leaves, order = rec["x"], rec["ops"], rec["leaves"], rec["order"]
+    dev_ms = cuda_ms(lambda: real_search(enc._ana(pcm_d, im, pm)[0], ops, leaves, order), 10)
+    iy = real_search(x, ops, leaves, order)[0]
     pinned = torch.empty(iy.shape, dtype=iy.dtype, pin_memory=True)
     iy_ms = cuda_ms(lambda: pinned.copy_(iy, non_blocking=True), 10)
     t = pvq_times(x, ops, leaves, real)
     print(f"encode device plane B={B}: analyze + search on resident inputs {dev_ms} ms a step "
           f"(CUDA events) = {B * 0.02 / dev_ms * 1e3} audio_s_per_s; iy download (packed int16, "
-          f"{iy.numel() * iy.element_size()} B into pinned memory, one copy; padded int32 it was "
-          f"{B * ENC_P_MAX * ENC_N_MAX * 4} B) {iy_ms} ms ({where})")
+          f"{iy.numel() * iy.element_size()} B into pinned memory, one copy) {iy_ms} ms "
+          f"({where})")
     print(f"time pvq_search recorded step (B={B}, 160 rows a stream, leaves by width class "
           f"{real['classes']}): wrapper_ms={t['ms']} kernel_alone_ms={t['kernel_ms']} "
           f"cuda_graph_ms_per_launch={t['graph_ms']} plain_ms={t['plain_ms']} bound_ms="
           f"{t['bound_ms']} ({t['bound_by']}; bytes needed {t['bytes']} {t['bytes_parts']} -> "
           f"{t['bytes_ms']} ms; longest leaf {real['max_trips']} trips x {PVQ_TRIP_CYCLES} "
-          f"cycles -> {t['chain_ms']} ms) share_of_bound={t['bound_ms'] / t['kernel_ms']}; the "
-          f"padded kernel's {PVQ_PADDED_KERNEL_MS} ms against the same bound: share "
-          f"{t['bound_ms'] / PVQ_PADDED_KERNEL_MS} (its own bound counted {t['bytes_padded']} B) "
-          f"({where})")
+          f"cycles -> {t['chain_ms']} ms) share_of_bound={t['bound_ms'] / t['kernel_ms']}; "
+          f"with the L2 flushed first: kernel_l2_flushed_ms={t['kernel_l2_flushed_ms']} "
+          f"share_of_bound={t['bound_ms'] / t['kernel_l2_flushed_ms']}; the padded kernel's "
+          f"recorded {PVQ_PADDED_RECORDED_MS} ms (inputs beyond the L2; not measured here) "
+          f"against the same bound: share {t['bound_ms'] / PVQ_PADDED_RECORDED_MS} ({where})")
     return {"launches": launches, "chunks": [], "rate": rate, "host_ms": host,
             "dev_ms": dev_ms, "iy_ms": iy_ms, "iy_bytes": iy.numel() * iy.element_size(),
             "times": t, "real": real, "snr": snr}
@@ -3054,10 +3095,8 @@ def main() -> int:
                        f"and left written) at 3.35 TB/s = {pvq_t['bytes_ms']} ms, the longest "
                        f"leaf's {encode['real']['max_trips']} trips x {PVQ_TRIP_CYCLES} cycles "
                        f"at 1.98 GHz = {pvq_t['chain_ms']} ms)",
-         "kernel_ms": pvq_t["kernel_ms"], "graph_ms": pvq_t["graph_ms"],
-         "padded_kernel_ms": PVQ_PADDED_KERNEL_MS,
-         "padded_kernel_share_of_bound": pvq_t["bound_ms"] / PVQ_PADDED_KERNEL_MS,
-         "iy_bytes": encode["iy_bytes"]},
+         "kernel_ms": pvq_t["kernel_ms"], "kernel_l2_flushed_ms": pvq_t["kernel_l2_flushed_ms"],
+         "graph_ms": pvq_t["graph_ms"], "iy_bytes": encode["iy_bytes"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

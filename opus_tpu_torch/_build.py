@@ -76,24 +76,32 @@ def build() -> pathlib.Path:
     return so
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: each entry point's argument types (every one returns a cudaError_t as int)
+SIGNATURES = {
+    "opus_postfilter": [_P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "opus_rot_pass": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "opus_pitch_track": [_P, _LL, _P, _LL, _LL, _I, _I, _I, _P, _P, _P],
+    "opus_lpc_synth": [_P, _P, _P, _P, _I, _I, _P],
+    "opus_silk_synth": [_P] * 10 + [_I] * 6 + [_P],
+    "opus_pvq_search": [_P] * 6 + [_I] * 12 + [_P],
+}
+
+
+def bind(lib: ctypes.CDLL, entries=SIGNATURES) -> ctypes.CDLL:
+    """Set the signature of each of `entries` on lib (a build of some or
+    all of the sources that defines them)."""
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = _I, SIGNATURES[name]
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.opus_postfilter.restype = i
-    lib.opus_postfilter.argtypes = [p, p, ll, ll, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, p]
-    lib.opus_rot_pass.restype = i
-    lib.opus_rot_pass.argtypes = [p, p, p, p, p, p, i, i, p]
-    lib.opus_pitch_track.restype = i
-    lib.opus_pitch_track.argtypes = [p, ll, p, ll, ll, i, i, i, p, p, p]
-    lib.opus_lpc_synth.restype = i
-    lib.opus_lpc_synth.argtypes = [p, p, p, p, i, i, p]
-    lib.opus_silk_synth.restype = i
-    lib.opus_silk_synth.argtypes = [p] * 10 + [i] * 6 + [p]
-    lib.opus_pvq_search.restype = i
-    lib.opus_pvq_search.argtypes = [p] * 6 + [i] * 12 + [p]
-    return lib
+    return bind(ctypes.CDLL(str(build())))
 
 
 def launch(entry: str, device: torch.device, args: tuple) -> None:

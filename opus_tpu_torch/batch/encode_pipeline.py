@@ -129,7 +129,7 @@ class BatchedPlanEncoder:
         leaves_d = self._up_d[: self._n_leaf_words].view(B, self.P_MAX, 4)
         bops_d = self._up_d[self._n_leaf_words : head].view(torch.float32).view(B, NB, 4)
         rows_d = self._up_d[head:used].view(-1, 2)
-        iy_d, _left = self._srch(x, bops_d, leaves_d, rows_d, order.counts, order.total)
+        iy_d, _left = self._srch(x, bops_d, leaves_d, order.on(rows_d))
         iy_h = self._iy_h[: order.total]
         iy_h.copy_(iy_d)
         iy = [PackedRows(iy_h.numpy(), order, b, self.N_MAX) for b in range(B)]

@@ -78,6 +78,10 @@ constexpr int kBands = 21;     // NB_E_BANDS
 constexpr int kUnits = 120;    // SHORT_MDCT_SIZE: n2 >> lm
 constexpr int kClasses = 4;    // width classes: > 32, 17-32, 9-16, 1-8
 constexpr unsigned kFull = 0xffffffffu;
+// Lanes a leaf of each class takes, in the row list's order
+// (dsp/pvq_search.py's CLASS_TILES): a warp, ceil(n / 32) slots a lane, for
+// the widest; then tiles of one position a lane for n up to their width.
+constexpr int kTiles[kClasses] = {kWarp, 32, 16, 8};
 
 // modes.E_BANDS, in units of 1 << lm positions.
 constexpr int kEBands[kBands + 1] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  10, 12,
@@ -267,10 +271,10 @@ __global__ void __launch_bounds__(kWarp * kWarps, 16) pvq_search_kernel(const Ar
   int cls = 0;
   while (cls < kClasses - 1 && static_cast<int>(blockIdx.x) >= a.first_block[cls + 1]) ++cls;
   switch (cls) {
-    case 0: search_class<kWarp, kWideSlots>(a, 0); break;
-    case 1: search_class<32, 1>(a, 1); break;
-    case 2: search_class<16, 1>(a, 2); break;
-    default: search_class<8, 1>(a, 3); break;
+    case 0: search_class<kTiles[0], kWideSlots>(a, 0); break;
+    case 1: search_class<kTiles[1], 1>(a, 1); break;
+    case 2: search_class<kTiles[2], 1>(a, 2); break;
+    default: search_class<kTiles[3], 1>(a, 3); break;
   }
 }
 
@@ -293,10 +297,9 @@ extern "C" int opus_pvq_search(const float* x, const float* band_ops, const int*
          reinterpret_cast<const int2*>(order), iy, left, static_cast<int>(rows), P, C, n2, lm,
          n_max, t_max, total, {}, {}, {}};
   const int counts[kClasses] = {n_wide, n32, n16, n8};
-  const int tiles[kClasses] = {kWarp, 32, 16, 8};  // lanes a leaf
   int blocks = 0, base = 0;
   for (int c = 0; c < kClasses; ++c) {
-    const int per_block = kWarps * (kWarp / tiles[c]);
+    const int per_block = kWarps * (kWarp / kTiles[c]);
     a.first_block[c] = blocks;
     a.base[c] = base;
     a.count[c] = counts[c];

@@ -139,19 +139,18 @@ def make_encode_analyze(lm: int, batch: int, channels: int, *, device):
 def make_encode_search(lm: int, batch: int, channels: int, p_max: int = 160,
                        n_max: int = 176, t_max: int = 128, *, device):
     """search(x [B, C, N2] from analyze, band_ops [B, NB, 4] float32,
-    leaves [B, p_max, 4] int32, rows [R, 2] int32, counts, total) -> (iy
-    [total] int16, left [B, p_max] int32): the greedy PVQ search of every
-    used leaf, its pulses packed in plan order; rows, counts and total are
-    the table's `leaf_order` (dsp/pvq_search.py, where the layouts are
-    described)."""
+    leaves [B, p_max, 4] int32, order) -> (iy [order.total] int16, left
+    [B, p_max] int32): the greedy PVQ search of every used leaf, its pulses
+    packed in plan order; order is the table's `leaf_order`
+    (dsp/pvq_search.py, where the layouts are described)."""
     device = torch.device(device)
 
-    def search(x, band_ops, leaves, rows, counts, total):
+    def search(x, band_ops, leaves, order):
         if x.device.type != device.type:
             raise ValueError(f"x is on {x.device}, the search on {device}")
         if leaves.shape != (batch, p_max, 4) or x.shape[:2] != (batch, channels):
             raise ValueError(f"search of {batch} streams, {channels} channels, {p_max} "
                              f"leaves: got x {tuple(x.shape)}, leaves {tuple(leaves.shape)}")
-        return pvq_search(x, band_ops, leaves, rows, counts, total, lm, n_max, t_max)
+        return pvq_search(x, band_ops, leaves, order, lm, n_max, t_max)
 
     return search

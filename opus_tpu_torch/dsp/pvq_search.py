@@ -16,9 +16,11 @@ within a stream in plan order (row p ascending), so leaf (b, p) starts
 at the exclusive cumulative sum of the widths before it.  `leaf_order`
 makes, with one numpy pass over the table, the row list the kernel
 walks: (b * P + p, start) of every used leaf, grouped into the width
-classes of CLASS_TILES.  `pack` / `unpack` convert between this layout
-and the reference's padded [B, P, n_max]; `PackedRows` gives one
-stream's rows as the emit pass reads them.
+classes of CLASS_TILES (`class_ranges`), and `pvq_search` takes that
+`LeafOrder` whole, with the row list already on the card where the
+caller uploaded it (`LeafOrder.on`).  `pack` / `unpack` convert between
+this layout and the reference's padded [B, P, n_max]; `PackedRows` gives
+one stream's rows as the emit pass reads them.
 
 It is not a TPU kernel: the reference runs the trips as a
 `lax.while_loop` (:265) of up to t_max trips over the whole [B, P, NMAX]
@@ -62,11 +64,26 @@ from ..celt import modes
 NB = modes.NB_E_BANDS
 LANES = 32
 SLOTS = 6  # positions a lane of the widest class holds in the kernel: NMAX <= 192
-#: lanes a leaf takes in each width class, in the row list's order: wider
-#: than 32 (ceil(n / 32) slots a lane), 17-32, 9-16, 1-8
+#: lanes a leaf takes in each width class, in the row list's order (csrc/pvq.cu's
+#: kTiles): class 0 a warp a leaf, ceil(n / 32) slots a lane, for every n wider
+#: than the next class holds; class c > 0 a tile of CLASS_TILES[c] lanes, one
+#: position a lane, for n up to CLASS_TILES[c]
 CLASS_TILES = (32, 32, 16, 8)
 EPSILON = float(np.float32(1e-15))
 RT2 = float(np.float32(np.sqrt(0.5)))
+
+
+def class_ranges(n_max: int = 176) -> tuple:
+    """(least n, greatest n) of each width class, in the row list's order:
+    ((33, n_max), (17, 32), (9, 16), (1, 8))."""
+    edges = CLASS_TILES[1:]
+    return tuple(zip((*(e + 1 for e in edges), 1), (n_max, *edges)))
+
+
+def _class_of(widths: np.ndarray) -> np.ndarray:
+    """The width class of each width >= 1."""
+    return len(CLASS_TILES) - 1 - np.searchsorted(np.array(CLASS_TILES[:0:-1]), widths,
+                                                  side="left")
 
 
 class LeafOrder(NamedTuple):
@@ -77,6 +94,13 @@ class LeafOrder(NamedTuple):
     starts: np.ndarray  # [B, P] int64: each leaf's first pulse in iy
     widths: np.ndarray  # [B, P] int64: min(n, n_max), 0 on an unused row
     total: int  # the pulses of iy
+    n_max: int  # the widest leaf the widths count
+    device_rows: torch.Tensor | None = None  # `rows` on the search's device (`on`)
+
+    def on(self, device_rows: torch.Tensor) -> LeafOrder:
+        """This layout with its row list already on the search's device
+        (a caller that uploads it with other inputs in one copy)."""
+        return self._replace(device_rows=device_rows)
 
 
 def leaf_order(leaves: np.ndarray, n_max: int = 176) -> LeafOrder:
@@ -89,12 +113,12 @@ def leaf_order(leaves: np.ndarray, n_max: int = 176) -> LeafOrder:
     ends = np.cumsum(widths)
     starts = ends - widths
     used = np.flatnonzero(widths)
-    cls = 3 - np.searchsorted(np.array([8, 16, 32]), widths[used], side="left")
+    cls = _class_of(widths[used])
     rows = used[np.argsort(cls, kind="stable")]
     return LeafOrder(np.stack([rows, starts[rows]], -1).astype(np.int32),
-                     tuple(int(c) for c in np.bincount(cls, minlength=4)),
+                     tuple(int(c) for c in np.bincount(cls, minlength=len(CLASS_TILES))),
                      starts.reshape(B, P), widths.reshape(B, P),
-                     int(ends[-1]) if ends.size else 0)
+                     int(ends[-1]) if ends.size else 0, n_max)
 
 
 def _packed_mask(leaves, n_max: int):
@@ -224,55 +248,82 @@ def _pvq_search_ref(x, band_ops, leaves, lm: int = 3, n_max: int = 176, t_max: i
     return out, left.to(torch.int32)
 
 
-def _check(x, band_ops, leaves, rows, counts, total: int, lm: int, n_max: int,
-           t_max: int) -> None:
+def _check(x, band_ops, leaves, order: LeafOrder, lm: int, n_max: int, t_max: int):
+    """Validate the inputs; return the row list on x's device."""
     if x.dim() != 3 or x.shape[1] not in (1, 2) or x.shape[2] != modes.SHORT_MDCT_SIZE << lm:
         raise ValueError(f"x must be [B, 1 or 2, {modes.SHORT_MDCT_SIZE << lm}], got "
                          f"{tuple(x.shape)}")
     B = x.shape[0]
     if leaves.dim() != 3 or leaves.shape[0] != B or leaves.shape[2] != 4:
         raise ValueError(f"leaves must be [{B}, P, 4], got {tuple(leaves.shape)}")
-    if len(counts) != len(CLASS_TILES) or min(counts) < 0 or total < 0:
-        raise ValueError(f"counts must be {len(CLASS_TILES)} leaf counts and total >= 0, got "
-                         f"{counts}, {total}")
+    if not 0 < n_max <= LANES * SLOTS or t_max < 0:
+        raise ValueError(f"n_max must be in 1..{LANES * SLOTS} and t_max >= 0, got "
+                         f"{n_max}, {t_max}")
+    # The layout against itself and the table's shape, in a few us: the
+    # rows, the total against the last start, and each class's first and
+    # last row inside its n range (a count moved from one class to the
+    # next moves a row across the edge).  The widths against the table's n
+    # are checked on the CPU only: on the card that is a device-to-host read.
+    widths = order.widths
+    if order.n_max != n_max or widths.shape != tuple(leaves.shape[:2]):
+        raise ValueError(f"the leaf order is of a {widths.shape} table at n_max "
+                         f"{order.n_max}, the search of {tuple(leaves.shape[:2])} at {n_max}")
+    if (len(order.counts) != len(CLASS_TILES) or min(order.counts) < 0
+            or order.rows.shape != (sum(order.counts), 2)
+            or order.total != (int(order.starts.flat[-1] + widths.flat[-1]) if widths.size else 0)):
+        raise ValueError(f"the leaf order's counts {order.counts}, rows {order.rows.shape} and "
+                         f"total {order.total} do not agree with each other and its widths")
+    flat, end = widths.reshape(-1), 0
+    for (lo, hi), n in zip(class_ranges(n_max), order.counts):
+        end += n
+        for i in (end - n, end - 1) if n else ():
+            r = int(order.rows[i, 0])
+            if not (0 <= r < flat.size and lo <= flat[r] <= hi):
+                raise ValueError(f"the leaf order's counts {order.counts} do not group its "
+                                 f"rows by width class")
+    if x.device.type == "cpu" and not np.array_equal(
+            widths, np.clip(leaves[..., 2].numpy(), 0, n_max)):
+        raise ValueError("the leaf order is not that of these leaves")
+    rows = order.device_rows
+    if rows is None:
+        rows = torch.from_numpy(order.rows).to(x.device)
     for name, t, shape, dtype in (("x", x, tuple(x.shape), torch.float32),
                                   ("band_ops", band_ops, (B, NB, 4), torch.float32),
                                   ("leaves", leaves, tuple(leaves.shape), torch.int32),
-                                  ("rows", rows, (sum(counts), 2), torch.int32)):
+                                  ("rows", rows, order.rows.shape, torch.int32)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"{name} must be {dtype} {shape} on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 0 < n_max <= LANES * SLOTS or t_max < 0:
-        raise ValueError(f"n_max must be in 1..{LANES * SLOTS} and t_max >= 0, got "
-                         f"{n_max}, {t_max}")
+    return rows
 
 
-def _kernel_args(x, band_ops, leaves, rows, counts, total: int, iy, left, lm: int, n_max: int,
-                 t_max: int) -> tuple:
-    """The C arguments of one launch into iy, left on checked CUDA tensors,
-    but the stream (which `_build.launch` adds)."""
+def _kernel_args(x, band_ops, leaves, rows, order: LeafOrder, iy, left, lm: int, t_max: int):
+    """The C arguments of one launch into iy, left on checked CUDA tensors
+    (rows: the order's row list on the card), but the stream (which
+    `_build.launch` adds)."""
     B, C, n2 = x.shape
     return (x.data_ptr(), band_ops.data_ptr(), leaves.data_ptr(), rows.data_ptr(),
-            iy.data_ptr(), left.data_ptr(), B, leaves.shape[1], C, n2, lm, n_max, t_max,
-            *counts, total)
+            iy.data_ptr(), left.data_ptr(), B, leaves.shape[1], C, n2, lm, order.n_max, t_max,
+            *order.counts, order.total)
 
 
-def pvq_search(x, band_ops, leaves, rows, counts, total: int, lm: int = 3, n_max: int = 176,
+def pvq_search(x, band_ops, leaves, order: LeafOrder, lm: int = 3, n_max: int = 176,
                t_max: int = 128):
     """Greedy PVQ search of every used leaf: x [B, C, N2] float32
     unit-normalised spectra, band_ops [B, NB, 4] float32 (op, a1, a2, _: op
     2 mid/side, 3 intensity mix a1 x0 + a2 x1, else the channel planes as
     they are), leaves [B, P, 4] int32 (plane, flat offset, n, K; n == 0 an
-    unused row), and the packed layout of that table (`leaf_order`): rows
-    [R, 2] int32 on the same device, counts and total on the host; all
-    contiguous.  Returns (iy [total] int16, the signed pulses packed in plan
-    order, left [B, P] int32, the pulses t_max trips left unplaced).  A CUDA
-    tensor goes through the kernel (each launch adds one to
-    `pvq_search.launches`; a table with no used leaf launches nothing); a
-    CPU tensor through `_pvq_search_ref`, packed."""
-    _check(x, band_ops, leaves, rows, counts, total, lm, n_max, t_max)
+    unused row), all contiguous on one device, and the table's packed
+    layout (`leaf_order(leaves, n_max)`; its row list is copied to the
+    device here unless the caller put it there, `LeafOrder.on`).  Returns
+    (iy [order.total] int16, the signed pulses packed in plan order, left
+    [B, P] int32, the pulses t_max trips left unplaced).  A CUDA tensor
+    goes through the kernel (each launch adds one to `pvq_search.launches`;
+    a table with no used leaf launches nothing); a CPU tensor through
+    `_pvq_search_ref`, packed."""
+    rows = _check(x, band_ops, leaves, order, lm, n_max, t_max)
     if x.device.type == "cpu":
         iy, left = _pvq_search_ref(x, band_ops, leaves, lm, n_max, t_max)
         return pack(iy, leaves, n_max), left
@@ -284,12 +335,11 @@ def pvq_search(x, band_ops, leaves, rows, counts, total: int, lm: int = 3, n_max
                              f"as one vector)")
     from .. import _build
 
-    iy = torch.empty(total, dtype=torch.int16, device=x.device)
+    iy = torch.empty(order.total, dtype=torch.int16, device=x.device)
     left = torch.empty(leaves.shape[:2], dtype=torch.int32, device=x.device)
     _build.launch("opus_pvq_search", x.device,
-                  _kernel_args(x, band_ops, leaves, rows, counts, total, iy, left, lm, n_max,
-                               t_max))
-    if sum(counts):
+                  _kernel_args(x, band_ops, leaves, rows, order, iy, left, lm, t_max))
+    if order.total:
         pvq_search.launches += 1
     return iy, left
 

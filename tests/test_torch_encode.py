@@ -131,6 +131,21 @@ def test_kernel_band_table_is_modes():
     assert [int(v) for v in body.split(",")] == modes.E_BANDS.tolist()
 
 
+def test_kernel_class_tiles_are_the_wrappers():
+    """csrc/pvq.cu's lanes a leaf of each width class are pvq_search's
+    CLASS_TILES, in the row list's order; the classes' n ranges tile
+    1..n_max."""
+    from opus_tpu_torch.dsp.pvq_search import CLASS_TILES, class_ranges
+
+    src = (ROOT / "opus_tpu_torch" / "csrc" / "pvq.cu").read_text()
+    body = src.split("kTiles[kClasses] = {", 1)[1].split("}", 1)[0]
+    tiles = [32 if v.strip() == "kWarp" else int(v) for v in body.split(",")]
+    assert tuple(tiles) == CLASS_TILES
+    ranges = class_ranges(176)
+    assert [n for lo, hi in ranges[::-1] for n in range(lo, hi + 1)] == list(range(1, 177))
+    assert all(hi <= t for (_lo, hi), t in zip(ranges[1:], CLASS_TILES[1:]))
+
+
 @pytest.mark.parametrize("channels", [1, 2])
 def test_analyze_matches_jax(channels):
     from opus_tpu.dsp.encode_exec import make_encode_analyze as jax_analyze
@@ -175,7 +190,7 @@ def _hold_search_to_jax(x, band_ops, leaves, channels, label):
         jnp.asarray(x), jnp.asarray(band_ops), jnp.asarray(leaves)))
     tx, tb, tl = (torch.from_numpy(np.array(a)) for a in (x, band_ops, leaves))
     order = leaf_order(np.asarray(leaves))
-    iy, left = pvq_search(tx, tb, tl, torch.from_numpy(order.rows), order.counts, order.total)
+    iy, left = pvq_search(tx, tb, tl, order)
     assert iy.dtype == torch.int16 and tuple(iy.shape) == (order.total,)
     got_iy, got_left = unpack(iy, tl).numpy(), left.numpy()
     valid = leaves[..., 2] > 0
@@ -257,7 +272,6 @@ def test_plain_search_matches_jax_on_synthetic_leaves(channels):
     _hold_search_to_jax(x, band_ops, leaves, channels, f"synthetic C={channels}")
 
 
-EDGES = (1, 8, 9, 16, 17, 32, 33, 64, 65, 176)  # the kernel's width-class edges
 
 
 @pytest.mark.parametrize("channels", [2, 1])
@@ -270,7 +284,7 @@ def test_pack_round_trip(channels):
     from opus_tpu_torch.dsp.pvq_search import _pvq_search_ref, leaf_order, pack, unpack
 
     x, band_ops, leaves = chip_smoke.pvq_inputs(60, 8, channels, "cpu")
-    assert set(EDGES) <= set(leaves[0, :, 2].tolist())
+    assert set(chip_smoke.pvq_edges()) <= set(leaves[0, :, 2].tolist())
     assert not leaves[:, 140:, 2].any()
     iy, _left = _pvq_search_ref(x, band_ops, leaves)
     packed = pack(iy, leaves)
@@ -286,7 +300,7 @@ def test_leaf_order(cls):
     starts the exclusive cumulative sum of min(n, 176) in plan order.  A
     batch of one class leaves the others empty."""
     import chip_smoke
-    from opus_tpu_torch.dsp.pvq_search import leaf_order
+    from opus_tpu_torch.dsp.pvq_search import class_ranges, leaf_order
 
     leaves = (chip_smoke.pvq_inputs(60, 8, 2, "cpu") if cls is None
               else chip_smoke.pvq_one_class(62, 8, 2, cls, "cpu"))[2].numpy()
@@ -296,7 +310,8 @@ def test_leaf_order(cls):
     rows, starts = order.rows[:, 0], order.rows[:, 1]
     assert order.rows.dtype == np.int32
     assert sorted(rows.tolist()) == np.flatnonzero(n > 0).tolist()
-    want_cls = np.select([width > 32, width > 16, width > 8], [0, 1, 2], 3)[rows]
+    want_cls = np.select([(width >= lo) & (width <= hi) for lo, hi in class_ranges(176)],
+                         [0, 1, 2, 3], -1)[rows]
     assert np.array_equal(want_cls, np.repeat(np.arange(4), order.counts))
     for c in range(4):
         assert np.all(np.diff(rows[want_cls == c]) > 0)
@@ -342,19 +357,39 @@ def test_packed_rows_read_as_padded():
 
 
 def test_pvq_search_rejects_a_bad_row_list():
-    """The wrapper checks the row list against the class counts."""
+    """The wrapper checks the leaf order against itself (the row list, the
+    class counts and the total against its widths), against the table's
+    shape and n_max, on the CPU against the table's n, and the uploaded
+    row list's shape and dtype."""
     import chip_smoke
     from opus_tpu_torch.dsp.pvq_search import leaf_order, pvq_search
 
     x, band_ops, leaves = chip_smoke.pvq_inputs(60, 8, 2, "cpu")
     order = leaf_order(leaves.numpy())
     rows = torch.from_numpy(order.rows)
+    iy, left = pvq_search(x, band_ops, leaves, order.on(rows))
+    assert iy.numel() == order.total
     with pytest.raises(ValueError, match="rows"):
-        pvq_search(x, band_ops, leaves, rows[1:], order.counts, order.total)
+        pvq_search(x, band_ops, leaves, order.on(rows[1:]))
     with pytest.raises(ValueError, match="rows"):
-        pvq_search(x, band_ops, leaves, rows.to(torch.int64), order.counts, order.total)
+        pvq_search(x, band_ops, leaves, order.on(rows.to(torch.int64)))
+    with pytest.raises(ValueError, match="rows"):
+        pvq_search(x, band_ops, leaves, order._replace(rows=order.rows[1:]))
     with pytest.raises(ValueError, match="counts"):
-        pvq_search(x, band_ops, leaves, rows, order.counts[:3], order.total)
+        pvq_search(x, band_ops, leaves, order._replace(counts=order.counts[:3]))
+    moved = (order.counts[0] - 1, order.counts[1] + 1, *order.counts[2:])
+    with pytest.raises(ValueError, match="counts"):
+        pvq_search(x, band_ops, leaves, order._replace(counts=moved))
+    with pytest.raises(ValueError, match="total"):
+        pvq_search(x, band_ops, leaves, order._replace(total=order.total + 1))
+    with pytest.raises(ValueError, match="n_max"):
+        pvq_search(x, band_ops, leaves, leaf_order(leaves.numpy(), 64))
+    with pytest.raises(ValueError, match="n_max"):
+        pvq_search(x, band_ops, leaves[:, :100].contiguous(), order)
+    other = leaves.clone()
+    other[0, 0, 2] = 33 if int(other[0, 0, 2]) != 33 else 34
+    with pytest.raises(ValueError, match="not that of these leaves"):
+        pvq_search(x, band_ops, leaves, leaf_order(other.numpy()))
 
 
 def _libopus_decoder(channels):
@@ -538,12 +573,11 @@ def test_kernel_matches_plain_on_card(cuda_device, channels, cls):
     else:
         x, band_ops, leaves = chip_smoke.pvq_one_class(62 + cls, 64, channels, cls, cuda_device)
     order = leaf_order(leaves.cpu().numpy())
-    rows = torch.from_numpy(order.rows).to(cuda_device)
     before = pvq_search.launches
-    iy, left = pvq_search(x, band_ops, leaves, rows, order.counts, order.total)
+    iy, left = pvq_search(x, band_ops, leaves, order)
     want_iy, want_left = _pvq_search_ref(x, band_ops, leaves)
     torch.cuda.synchronize()
     assert pvq_search.launches == before + 1
     assert torch.equal(iy, pack(want_iy, leaves)) and torch.equal(left, want_left)
-    if cls is None and channels == 2:
+    if cls is None:
         assert int(left.sum()) > 0  # the K = 200 leaf leaves pulses unplaced

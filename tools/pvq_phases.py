@@ -114,11 +114,8 @@ def build(srcs: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name} copy:\n{log}")
-        lib = ctypes.CDLL(str((out / name).with_suffix(".so")))
-        lib.opus_pvq_search.restype = ctypes.c_int
-        lib.opus_pvq_search.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
-            ctypes.c_void_p]
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(str((out / name).with_suffix(".so"))),
+                                 ["opus_pvq_search"])
     return libs
 
 
@@ -130,9 +127,9 @@ def recorded_step(dev) -> tuple:
     enc = BatchedPlanEncoder(cs.B, cs.C, 96000, device=dev)
     rec, search = {}, enc._srch
 
-    def record(x, ops, leaves, *order):
+    def record(x, ops, leaves, order):
         rec.update(x=x.clone(), ops=ops.clone(), leaves=leaves.clone())
-        return search(x, ops, leaves, *order)
+        return search(x, ops, leaves, order)
 
     enc._srch = record
     enc.encode_step(cs.music_pcm(cs.B, 1)[0])
@@ -173,8 +170,8 @@ def main() -> int:
              torch.empty(leaves.shape[:2], dtype=torch.int32, device=dev)) for _ in range(2)]
 
     def prepared(rows_, counts, t_max=cs.ENC_T_MAX):
-        return [pq._kernel_args(x, ops, leaves, rows_, counts, order.total, iy, left, 3,
-                                cs.ENC_N_MAX, t_max) for iy, left in outs]
+        return [pq._kernel_args(x, ops, leaves, rows_, order._replace(counts=counts), iy, left,
+                                3, t_max) for iy, left in outs]
 
     full = prepared(rows, order.counts)
     times, equal = {}, {}
@@ -183,8 +180,8 @@ def main() -> int:
         torch.cuda.synchronize()
         equal[name] = bool(torch.equal(outs[0][0], want_iy) and torch.equal(outs[0][1], want_left))
     print(f"pvq_search encode step 0 B={cs.B}: {int((leaves[..., 2] > 0).sum())} leaves, by "
-          f"width class >32 / 17-32 / 9-16 / 1-8 {order.counts}; device ms/launch (CUDA graph) "
-          f"{times}; iy and left equal to the plain version {equal} ({card})")
+          f"width class {pq.class_ranges(cs.ENC_N_MAX)} {order.counts}; device ms/launch (CUDA "
+          f"graph) {times}; iy and left equal to the plain version {equal} ({card})")
     lib, base = libs["source"].opus_pvq_search, np.cumsum((0, *order.counts))
     alone = {}
     for c, tiles in enumerate(pq.CLASS_TILES):
