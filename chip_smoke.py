@@ -14,7 +14,12 @@ at 1 to 2,048 rows, poles at radius 0.995 and 0.999, a zero LPC that
 must pass ext through exactly).
 Then it serves 1024 stereo 48 kHz CELT streams (20 ms frames at 96 kbps,
 payloads from the port's native encoder) through three main paths of
-BatchedCeltDecoder:
+BatchedCeltDecoder.  Every serve loop on the card replays each step
+variant from a CUDA graph captured at the variant's first step
+(opus_tpu_torch/dsp/graphs.py); the launch counts below count the
+kernels each replay ran, and the kernels' recorded inputs come from the
+eager run that precedes each capture (each path prints the steps they
+came from and the graphs it captured):
 
 * p10: transfer="p10", 13 steps, one of them with lost packets: the
   post-filter kernel must launch on every step with an active filter;
@@ -66,6 +71,16 @@ serve rates (mixed, mixed-loss, mixed-switch), the shadow decode's host
 ms a redundant block and a step, the ToC parse and plane A times, the
 upload words (internal and 48 kHz SILK) and the mixed device step (CUDA
 events, kernels per step under the profiler) are printed.
+
+graphs: each step variant of the serve loops at B=1024 (p10, plan, plan-loss's
+compact and whole-batch concealing steps, mixed and mixed-loss) replayed
+from its CUDA graph must equal the factory's eager step from copies of
+the same state, slot and ring bit for bit (ring, decode memory,
+pre-emphasis, SILK history, the conceal's LPC and pitch, digest), and a
+replayed step must show one cudaGraphLaunch and no kernel launch under
+the profiler.  Prints the graphs captured, the capture ms, plane A's ms,
+the host ms of a replayed step call, the device ms of a replayed and an
+eager step (CUDA events), and torch.cuda.max_memory_allocated.
 
 run_pipelined: both decoders at B=1024 for 3 steps (BatchedCeltDecoder on
 the CELT payloads, BatchedOpusDecoder on the mixed traffic, p10 with 48
@@ -895,17 +910,19 @@ def sampled(pcm: list, ranges: list, rows: list) -> dict | None:
     return {"rows": list(rows), "pcm": np.concatenate(pcm, axis=1), "ranges": ranges}
 
 
-def serve_steps(dec, batches, sample=()) -> dict:
+def serve_steps(dec, batches, sample=(), captured=None) -> dict:
     """Serve one step per call; keep streams 0-3's PCM, each step's
     post-filter activity and its count of streams flagged for device
     concealment (from the slot the step used), and the PCM and final ranges
     of the streams `sample` (for the library phase), with one gather of
-    the ring a step."""
+    the ring a step.  captured["step"] (recording_inputs) counts the steps."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
     rows, at_keep, at_sample = kept_rows(range(4), sample)
     pcm, chunks, flagged, s_pcm, s_ranges = [], [], [], [], []
-    for packets in batches:
+    for t, packets in enumerate(batches):
+        if captured is not None:
+            captured["step"] = t
         fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets], FRAME)
         ring = dec._serve_ring
@@ -948,34 +965,48 @@ def recording_inputs(captured: dict):
     copied into captured["rotation"] and captured["postfilter"], those of
     the first pitch_track call of each (rows, lags) into
     captured["pitch"] and of the first lpc_synth call of each row count
-    into captured["synth"]."""
+    into captured["synth"].  On the card a serving step is replayed from
+    its CUDA graph, which runs no wrapper: only eager calls record (the
+    warm-up that precedes each variant's capture), never a call made while
+    a graph is being captured.  captured["from"] collects (kernel, step)
+    of each recording, the step being captured["step"] at the time (the
+    caller's count of the serve calls made)."""
     import contextlib
 
     from opus_tpu_torch.dsp import plan_exec, plc_exec, synthesis
 
     real_rot, real_pf = plan_exec.rot_pass, synthesis.postfilter
     real_pt, real_ls = plc_exec.pitch_track, plc_exec.lpc_synth
-    captured.update(rotation=[], postfilter=[], pitch={}, synth={})
+    captured.update(rotation=[], postfilter=[], pitch={}, synth={}, step=0)
+    captured["from"] = {}
+
+    def eager_call(kernel: str) -> bool:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return False
+        captured["from"].setdefault(kernel, set()).add(captured["step"])
+        return True
 
     def rot(*args):
-        if len(captured["rotation"]) < 2:
+        if len(captured["rotation"]) < 2 and eager_call("rotation"):
             captured["rotation"].append([a.clone() for a in args])
         return real_rot(*args)
 
     def pf(y, hist, n, lm, periods, gains, tapsets, chunk):
-        if not captured["postfilter"]:
+        if not captured["postfilter"] and eager_call("postfilter"):
             captured["postfilter"].append(
                 (y.clone(), hist, n, lm, same_layout(periods), same_layout(gains),
                  same_layout(tapsets), chunk))
         return real_pf(y, hist, n, lm, periods, gains, tapsets, chunk)
 
     def pt(xc, y, length, n_lags):
-        captured["pitch"].setdefault((xc.shape[0], n_lags),
-                                     (xc.clone(), same_layout(y), length, n_lags))
+        if (xc.shape[0], n_lags) not in captured["pitch"] and eager_call("pitch_track"):
+            captured["pitch"][xc.shape[0], n_lags] = (xc.clone(), same_layout(y), length,
+                                                      n_lags)
         return real_pt(xc, y, length, n_lags)
 
     def ls(ext, lpc, hist0):
-        captured["synth"].setdefault(ext.shape[0], [a.clone() for a in (ext, lpc, hist0)])
+        if ext.shape[0] not in captured["synth"] and eager_call("lpc_synth"):
+            captured["synth"][ext.shape[0]] = [a.clone() for a in (ext, lpc, hist0)]
         return real_ls(ext, lpc, hist0)
 
     @contextlib.contextmanager
@@ -989,6 +1020,22 @@ def recording_inputs(captured: dict):
             plc_exec.pitch_track, plc_exec.lpc_synth = real_pt, real_ls
 
     return patched()
+
+
+def recorded_from(captured: dict) -> dict:
+    """Each recorded kernel's steps (recording_inputs' captured["from"])."""
+    return {k: sorted(v) for k, v in captured["from"].items()}
+
+
+def graph_summary(dec) -> str:
+    """The CUDA graphs a decoder captured and each capture's host ms (the
+    eager run and the capture)."""
+    from opus_tpu_torch.dsp.graphs import CapturedStep
+
+    steps = [s for s in dec._steps.values() if isinstance(s, CapturedStep)]
+    done = [s for s in steps if s.graph is not None]
+    return (f"{len(done)} graphs captured, capture ms "
+            f"{[round(s.capture_ms, 1) for s in done]}")
 
 
 def rotation_on_real_chains(captured: list, where: str, label: str = "plan step") -> dict:
@@ -1131,11 +1178,13 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     with recording_inputs(captured):
         for fn in counters.values():
             fn.launches = 0
-        got = serve_steps(dec, batches, LIBRARY_ROWS if transfer == "plan" else ())
+        got = serve_steps(dec, batches, LIBRARY_ROWS if transfer == "plan" else (), captured)
         launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
-          f"{got['flagged']}, concealment variants {variants}, kernel launches {launches}")
+          f"{got['flagged']}, concealment variants {variants}, kernel launches {launches}; "
+          f"{graph_summary(dec)}; kernel inputs recorded from the eager warm-up of steps "
+          f"{recorded_from(captured)}")
     if dec.plan_fallbacks:
         raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} plan steps fell back "
                              f"to the q14 spectrum")
@@ -1214,8 +1263,10 @@ def p10_device(dev, batches, where: str) -> None:
 
 
 def plan_device(dev, batches, where: str) -> None:
-    """Plane A plan time, upload words per step and the plan device step."""
+    """Plane A plan time, upload words per step and the plan device step,
+    eager (the factory's step) and replayed from its CUDA graph."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.graphs import eager
     from opus_tpu_torch.dsp.synthesis import init_state
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
@@ -1234,12 +1285,15 @@ def plan_device(dev, batches, where: str) -> None:
     buf = slot["host"][: words[-1]].to(dev)
     state = init_state(B, C, device=dev)
     ring = torch.zeros(B, FRAME, C, device=dev)
-    step_ms = cuda_ms(lambda: step(state, ring, buf), 30)
+    step_ms = cuda_ms(lambda: eager(step)(state, ring, buf), 30)
+    replay = cuda_ms(lambda: step(state, ring, buf), 30)
     print(f"plane A plan B={B}: ms/step median={statistics.median(plane_a) * 1e3} ({where})")
     print(f"upload plan B={B}: words/step median={statistics.median(words)} "
           f"per_stream={statistics.median(words) / B} classes={sorted(set(classes))}")
     print(f"device step B={B} plan lm={lm} chunk={chunk} words={words[-1]} class={classes[-1]}: "
-          f"ms={step_ms} audio_s_per_s={B * FRAME / 48000.0 / (step_ms / 1e3)} ({where})")
+          f"eager ms={step_ms} replayed ms={replay} audio_s_per_s eager="
+          f"{B * FRAME / 48000.0 / (step_ms / 1e3)} replayed="
+          f"{B * FRAME / 48000.0 / (replay / 1e3)} ({where})")
 
 
 def make_mixed_payloads(celt: list) -> list:
@@ -1288,18 +1342,21 @@ def with_mixed_losses(batches) -> list:
     return out
 
 
-def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS), sample=()) -> dict:
+def serve_mixed_steps(dec, batches, keep=range(MIXED_CPU_STREAMS), sample=(),
+                      captured=None) -> dict:
     """Serve one step per call; keep the PCM of streams `keep` (0-5 by
     default), each step's post-filter activity, count of streams flagged
     for device concealment, hybrid streams and upload words, and the PCM
     and final ranges of the streams `sample` (for the library phase), with
-    one gather of the ring a step."""
+    one gather of the ring a step.  captured["step"] counts the steps."""
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
     keep = list(keep)
     rows, at_keep, at_sample = kept_rows(keep, sample)
     pcm, chunks, flagged, hybrid, words, s_pcm, s_ranges = [], [], [], [], [], [], []
-    for packets in batches:
+    for t, packets in enumerate(batches):
+        if captured is not None:
+            captured["step"] = t
         fallbacks = dec.plan_fallbacks
         digest = dec.serve([packets])
         ring = dec._serve_ring
@@ -1368,12 +1425,13 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
         for fn in counters.values():
             fn.launches = 0
         got = serve_mixed_steps(dec, batches, keep,
-                                LIBRARY_ROWS if name in ("mixed", "mixed-loss") else ())
+                                LIBRARY_ROWS if name in ("mixed", "mixed-loss") else (), captured)
         launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path {name}: {len(batches)} steps, post-filter chunks {got['chunks']}, "
           f"plan fallbacks {dec.plan_fallbacks}, streams flagged for concealment "
           f"{got['flagged']}, concealment variants {variants}, hybrid streams {got['hybrid']}, "
-          f"upload words {got['words']}, kernel launches {launches}")
+          f"upload words {got['words']}, kernel launches {launches}; {graph_summary(dec)}; "
+          f"kernel inputs recorded from the eager warm-up of steps {recorded_from(captured)}")
     if dec.plan_fallbacks:
         raise AssertionError(f"{dec.plan_fallbacks} of {len(batches)} mixed plan steps fell "
                              f"back to the packed path")
@@ -1544,6 +1602,195 @@ def switch_rate(dev, batches, where: str) -> float:
     return statistics.median(rates)
 
 
+def replay_vs_eager(step, state, ring, buf, plc=(), **kw) -> dict:
+    """One serving step replayed from its CUDA graph against the factory's
+    uncaptured step (graphs.eager) run on copies of the same state, ring
+    and conceal state, on the same uploaded slot.  The first call captures
+    the variant when it is new (its eager run advances the state, which is
+    restored before the replay).  Returns whether ring, state.mem,
+    preemph, silk_hist, the conceal's LPC and pitch and the digest are
+    equal bit for bit, each one's max abs difference, whether a second
+    eager run equals the first (a step that is not deterministic could not
+    pass), and the host ms of the replayed call (no sync)."""
+    from opus_tpu_torch.dsp.graphs import eager
+    from opus_tpu_torch.dsp.synthesis import SynthState
+
+    pairs = [("mem", state.mem), ("preemph", state.preemph), ("silk_hist", state.silk_hist),
+             ("ring", ring), *zip(("plc_lpc", "plc_pitch"), plc)]
+    pairs = [(n, t) for n, t in pairs if t is not None]
+    snap = [t.clone() for _, t in pairs]
+    step(state, ring, buf, *plc, **kw)  # the variant's capture, when it is new
+    for (_, t), s0 in zip(pairs, snap):
+        t.copy_(s0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    digest = step(state, ring, buf, *plc, **kw)[2]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    got = {n: t.clone() for n, t in pairs}
+    got["digest"] = digest.clone()
+
+    def run_eager() -> dict:
+        out = {n: s0.clone() for (n, _), s0 in zip(pairs, snap)}
+        e_state = SynthState(out["mem"], out["preemph"], out.get("silk_hist"))
+        e_plc = [out[n] for n in ("plc_lpc", "plc_pitch") if n in out]
+        out["digest"] = eager(step)(e_state, out["ring"], buf, *e_plc, **kw)[2]
+        return out
+
+    want, again = run_eager(), run_eager()
+    torch.cuda.synchronize()
+    diffs = {n: float((got[n].double() - want[n].double()).abs().max()) for n in got}
+    return {"equal": all(torch.equal(got[n], want[n]) for n in got), "diffs": diffs,
+            "eager_repeat_equal": all(torch.equal(want[n], again[n]) for n in want),
+            "host_ms": host_ms}
+
+
+def graph_case(dev, name: str, batches, t: int) -> tuple:
+    """A decoder at B=1024 that has served steps 0..t-1 through serve() (on
+    their graphs), and step t's plane A and upload done by hand as the
+    serve loop does them: (decoder, step, state, ring, buf, plc, kw,
+    plane A ms).  `name` is p10, plan, compact, whole-batch (the plan
+    transfer), mixed or mixed-loss (plan, internal SILK)."""
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.tables import pf_chunk_for
+    from opus_tpu_torch.native.frontend import pack_plan_silk
+
+    if name.startswith("mixed"):
+        dec = BatchedOpusDecoder(B, C, transfer="plan", silk_transfer="internal", device=dev)
+        if t:
+            dec.serve(batches[:t])
+        state, ring = dec._serve_state_and_ring(FRAME)
+        slots, plan_buf = dec._alloc_plan_slots(FRAME, 1)
+        t0 = time.perf_counter()
+        dec._plane_a_plan(batches[t], slots[0])
+        plane_a = (time.perf_counter() - t0) * 1e3
+        lm, chunk, active, with_plc = dec._step_picks(slots[0])
+        silk_at, words = pack_plan_silk(slots[0])
+        buf, end, at = dec._upload_plan(slots[0], plan_buf, words, silk_at)
+        step = dec._mixed_plan_serving_step(lm, chunk, active, dec._plan_size_class(slots[0]),
+                                            with_plc)
+        kw = dict(end=end, silk_at=at)
+    else:
+        transfer = "p10" if name == "p10" else "plan"
+        dec = BatchedCeltDecoder(B, C, transfer=transfer, device=dev)
+        if t:
+            dec.serve(batches[:t], FRAME)
+        state, ring = dec._serve_state_and_ring()
+        slot = dec._alloc_slots(1, "p10")[0] if transfer == "p10" else dec._alloc_plan_slots(1)[0]
+        t0 = time.perf_counter()
+        if transfer == "p10":
+            dec.native.decode_batch_q15_into(batches[t], FRAME, slot)
+        else:
+            dec.native.decode_batch_plan_into(batches[t], FRAME, slot)
+        plane_a = (time.perf_counter() - t0) * 1e3
+        meta = slot["meta"]
+        lm = dec._step_lm(meta)
+        chunk, active = pf_chunk_for(meta[:, 6:9], slot["gains"])
+        ring = dec._ring_for(ring, lm)
+        with_plc = False
+        if transfer == "p10":
+            buf, kw = dec._device_buffer("p10", slot["host"].shape[0]), {}
+            dec._upload(slot, buf, buf.shape[0])
+            step = dec._serving_step(lm, chunk, active, "p10")
+        else:
+            with_plc = dec._plc_variant(meta)
+            plan_buf = dec._device_buffer("plan", slot["head"].shape[0])
+            buf, end, _ = dec._upload_plan(slot, plan_buf, dec._plan_upload_words(slot))
+            step = dec._plan_serving_step(lm, chunk, active, dec._plan_size_class(slot), with_plc)
+            kw = dict(end=end)
+    variant = "none" if with_plc is False else "whole-batch" if with_plc is True else "compact"
+    if variant != {"compact": "compact", "whole-batch": "whole-batch",
+                   "mixed-loss": "compact"}.get(name, "none"):
+        raise AssertionError(f"graphs {name}: step {t} runs the concealment variant {with_plc}")
+    plc = dec._serve_plc_state(C) if with_plc else ()
+    return dec, step, state, ring, buf, plc, kw, plane_a
+
+
+#: (variant, traffic, step): each variant of the CELT and mixed serve loops
+#: at a step that runs it (plan-loss step 1 conceals about 51 streams:
+#: compact; step LOST_STEP at least 342: the whole batch).
+GRAPH_CASES = [("p10", "lossy", 1), ("plan", "clean", 1), ("compact", "plan_lossy", 1),
+               ("whole-batch", "plan_lossy", LOST_STEP), ("mixed", "mixed", 1),
+               ("mixed-loss", "mixed_lossy", 1)]
+#: Runtime and driver calls that launch one kernel (cudaLaunchKernelExC, ...).
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
+def replay_profile(run) -> dict:
+    """The runtime calls of one run() under torch.profiler: its graph
+    launches, its kernel launches and the kernels the card ran."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    count = {e.key: e.count for e in ka if e.device_type != torch.autograd.DeviceType.CUDA}
+    return {"graph_launches": sum(c for k, c in count.items() if k.startswith("cudaGraphLaunch")),
+            "kernel_launches": sum(c for k, c in count.items()
+                                   if k.startswith(KERNEL_LAUNCH_CALLS)),
+            "device_kernels": sum(e.count for e in ka
+                                  if e.device_type == torch.autograd.DeviceType.CUDA)}
+
+
+def graphs_phase(dev, traffic: dict, where: str) -> dict:
+    """Each step variant of the CELT and mixed serve loops (GRAPH_CASES) at
+    B=1024: its step replayed from its CUDA graph must equal the
+    factory's eager step from copies of the same state, slot and ring, bit
+    for bit (ring, state.mem, preemph, silk_hist, the conceal's LPC and
+    pitch, the digest).  Prints per variant the graphs the decoder
+    captured and their capture ms, plane A's ms of the step, the host ms
+    of the replayed step call, the device ms of a replayed and of an eager
+    step (CUDA events), and torch.cuda.max_memory_allocated since the
+    phase began; on the plan variant the profiler must show one
+    cudaGraphLaunch and no kernel launch for a replayed step."""
+    import gc
+
+    from opus_tpu_torch.dsp.graphs import eager
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, kind, t in GRAPH_CASES:
+        dec, step, state, ring, buf, plc, kw, plane_a = graph_case(dev, name, traffic[kind], t)
+        res = replay_vs_eager(step, state, ring, buf, plc, **kw)
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, ring, buf, *plc, **kw)
+            host.append((time.perf_counter() - t0) * 1e3)
+        replay = cuda_ms(lambda: step(state, ring, buf, *plc, **kw), 20)
+        eager_ms = cuda_ms(lambda: eager(step)(state, ring, buf, *plc, **kw), 3)
+        prof = replay_profile(lambda: step(state, ring, buf, *plc, **kw))
+        res.update(graphs=graph_summary(dec), capture_ms=step.capture_ms, plane_a_ms=plane_a,
+                   host_ms=statistics.median(host), replay_ms=replay, eager_ms=eager_ms,
+                   profile=prof, max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"graphs {name} step {t} B={B}: replay equals eager bit for bit {res['equal']} "
+              f"(max abs diff {res['diffs']}; a second eager run equals the first "
+              f"{res['eager_repeat_equal']}); {res['graphs']}; this variant's capture ms "
+              f"{step.capture_ms}; plane A ms {plane_a}; host ms of a replayed step call "
+              f"median {res['host_ms']}; device ms a step by events: replayed {replay}, eager "
+              f"{eager_ms}; a replay under the profiler: {prof}; max_memory_allocated "
+              f"{res['max_memory_allocated']} B ({where})")
+        if not res["equal"]:
+            raise AssertionError(f"graphs {name}: the replayed step differs from the eager "
+                                 f"one: {res['diffs']}")
+        if prof["graph_launches"] != 1 or prof["kernel_launches"]:
+            raise AssertionError(f"graphs {name}: a replayed step made {prof['graph_launches']} "
+                                 f"graph launches and {prof['kernel_launches']} kernel launches")
+        out[name] = res
+        del dec, step, state, ring, buf, plc, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+    plan = out["plan"]
+    print(f"graphs summary B={B}: plan step plane A ms {plan['plane_a_ms']}, host ms of a "
+          f"replayed step call {plan['host_ms']}, device busy ms (events) {plan['replay_ms']} "
+          f"(eager {plan['eager_ms']}); max_memory_allocated over the phase "
+          f"{torch.cuda.max_memory_allocated()} B ({where})")
+    return out
+
+
 def pipelined_phase(dev, clean, mixed, where: str) -> dict:
     """run_pipelined of both decoders at B=1024 over PIPELINED_STEPS steps:
     BatchedCeltDecoder (f32 planes) on the CELT payloads and
@@ -1605,8 +1852,10 @@ def mixed_device(dev, batches, where: str) -> None:
     """Host and device costs of a mixed plan step: the ToC parse and plane
     A per step, the upload words per step with internal and with 48 kHz
     SILK (and of the p10 fallback's packed slot), and the device step on a
-    resident slot (CUDA events; kernels per step under the profiler)."""
+    resident slot, eager (CUDA events; kernels per step under the profiler)
+    and replayed from its CUDA graph."""
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.dsp.graphs import eager
     from opus_tpu_torch.dsp.synthesis import init_state
     from opus_tpu_torch.native.frontend import compact_plan_silk, pack_plan_silk
 
@@ -1632,16 +1881,17 @@ def mixed_device(dev, batches, where: str) -> None:
               f"{statistics.median(plane_a) * 1e3} upload words/step median="
               f"{statistics.median(words)} (fixed {slot['fixed_words']}, SILK rows median "
               f"{statistics.median(rows)}); packed fallback slot words {pk_words} ({where})")
-    lm, chunk, active, with_plc, rates = dec._step_picks(slot)
+    lm, chunk, active, with_plc = dec._step_picks(slot)
     step = dec._mixed_plan_serving_step(lm, chunk, active, dec._plan_size_class(slot), False)
     buf = slot["host"][:w].to(dev)
     state = init_state(B, C, device=dev, silk_hist=True)
     ring = torch.zeros(B, FRAME, C, device=dev)
 
     def run():
-        step(state, ring, buf, silk_at=silk_at, rates=rates)
+        eager(step)(state, ring, buf, silk_at=silk_at)
 
     step_ms = cuda_ms(run, 30)
+    replay = cuda_ms(lambda: step(state, ring, buf, silk_at=silk_at), 30)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(5):
@@ -1649,9 +1899,10 @@ def mixed_device(dev, batches, where: str) -> None:
         torch.cuda.synchronize()
     kernels = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 5
-    print(f"device step B={B} mixed plan internal lm={lm} chunk={chunk} words={w}: ms={step_ms} "
-          f"kernels/step={kernels} audio_s_per_s={B * FRAME / 48000.0 / (step_ms / 1e3)} "
-          f"({where})")
+    print(f"device step B={B} mixed plan internal lm={lm} chunk={chunk} words={w}: eager ms="
+          f"{step_ms} kernels/step={kernels} replayed ms={replay} audio_s_per_s eager="
+          f"{B * FRAME / 48000.0 / (step_ms / 1e3)} replayed "
+          f"{B * FRAME / 48000.0 / (replay / 1e3)} ({where})")
 
 
 def kernel_counters() -> dict:
@@ -1976,17 +2227,21 @@ def load_ms_group(group: str, sessions: int) -> tuple[list, list, list]:
     return data[f"{group}_layout"].tolist(), steps, want
 
 
-def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4, sample=()) -> dict:
+def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4, sample=(),
+                   captured=None) -> dict:
     """Serve one multistream packet a session per call (`frames` core steps
     of 20 ms each); keep sessions 0..keep-1's PCM, every session's final
     ranges after each call, the post-filter activity of every core step
-    (CELT cores) and the PCM and final ranges of the sessions `sample`."""
+    (CELT cores) and the PCM and final ranges of the sessions `sample`.
+    captured["step"] counts the packets."""
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
     core = bmd.core
     pcm, ranges, chunks, s_pcm = [], [], [], []
-    for packets in steps:
+    for t, packets in enumerate(steps):
+        if captured is not None:
+            captured["step"] = t
         out = bmd.serve([packets], FRAME)
         if out.shape != (bmd.batch, FRAME, bmd.channels) or not np.isfinite(out).all():
             raise AssertionError(f"multistream serve returned {out.shape} PCM or non-finite "
@@ -2041,7 +2296,7 @@ def ms_path(dev, name: str, where: str) -> dict:
             fn.launches = 0
         got = ms_serve_steps(bmd, steps, frames,
                              sample=LIBRARY_ROWS[:LIBRARY_SESSIONS] if name == "multistream"
-                             else ())
+                             else (), captured=captured)
         launches = {k: fn.launches for k, fn in counters.items()}
     wrong = [p for p, (g, w) in enumerate(zip(got["ranges"], want_ranges)) if g != w]
     fallbacks = getattr(bmd.core, "plan_fallbacks", 0)
@@ -2049,7 +2304,8 @@ def ms_path(dev, name: str, where: str) -> dict:
           f"elementary, {coupled} coupled a session), {mode} core on {transfer}, "
           f"{len(steps)} packets x {frames} frames, post-filter chunks {got['chunks']}, plan "
           f"fallbacks {fallbacks}, kernel launches {launches}; packets whose final ranges "
-          f"differ from libopus's: {wrong}")
+          f"differ from libopus's: {wrong}; {graph_summary(bmd.core)}; kernel inputs recorded "
+          f"from the eager warm-up of packets {recorded_from(captured)}")
     if wrong or fallbacks:
         raise AssertionError(f"{name}: final ranges differ from libopus's after packets "
                              f"{wrong}, or {fallbacks} plan fallbacks")
@@ -2914,6 +3170,8 @@ def main() -> int:
              "mixed-loss": timed("mixed-loss", mixed_path, dev, "mixed-loss", mixed_lossy, where),
              "mixed-p10": timed("mixed-p10", mixed_path, dev, "mixed-p10",
                                 mixed_lossy[:MIXED_P10_STEPS], where)}
+    timed("graphs", graphs_phase, dev, {"lossy": lossy, "clean": clean, "plan_lossy": plan_lossy,
+                                        "mixed": mixed, "mixed_lossy": mixed_lossy}, where)
     switch = with_switches(mixed)
     paths["mixed-switch"] = timed("mixed-switch", mixed_path, dev, "mixed-switch", switch, where)
     paths["mixed-switch-p10"] = timed("mixed-switch-p10", mixed_path, dev, "mixed-switch-p10",

@@ -13,7 +13,10 @@ per step:
 * Plane B (device): the serving steps of dsp/synthesis.py synthesise the
   CELT plane of the whole batch (the plan executor first rebuilds the
   spectra on the plan transfer), add the SILK PCM, resampled on the device
-  when it ships at the internal rate, and write the step's PCM ring.
+  when it ships at the internal rate, and write the step's PCM ring.  On
+  a CUDA device serve() replays each step variant from a CUDA graph
+  captured at its first step (dsp/graphs.py); on the CPU the steps run
+  eagerly.
 
 Fast-path contract (steady-state serving): one Opus frame per packet and
 one frame duration per step; violations raise with the stream index.  A
@@ -44,7 +47,6 @@ from ..dsp.synthesis import (
     make_opus_step,
     make_plan_serving_step,
     make_serving_step,
-    silk_rate_counts,
 )
 from ..dsp.tables import PACK_BITS, XQ_WORDS, packed_offsets, pf_chunk_for
 from ..dsp.transitions import apply_corrections
@@ -91,7 +93,7 @@ class BatchedOpusDecoder(ServingSlots):
         self.device = torch.device(device)
         self.native = NativeOpusFrontEnd(batch, channels, self.silk_internal)
         self.state = init_state(batch, channels, device=self.device)
-        self._steps: dict = {}
+        self._init_serving()
         #: plan steps served on the packed path because the plan overflowed
         self.plan_fallbacks = 0
         # decode_frames' double-buffered planes
@@ -318,26 +320,23 @@ class BatchedOpusDecoder(ServingSlots):
 
     def _mixed_serving_step(self, lm: int, pf_chunk: int, pf_active: bool, with_plc):
         key = ("serve", lm, pf_chunk, pf_active, with_plc)
-        if key not in self._steps:
-            self._steps[key] = make_serving_step(
-                lm, self.batch, self.channels, pf_chunk=pf_chunk, pf_active=pf_active,
-                transfer=self._packed_mode(), silk_mix=True,
-                silk_internal=self.silk_internal, with_plc=with_plc, device=self.device)
-        return self._steps[key]
+        return self._served(key, lambda: make_serving_step(
+            lm, self.batch, self.channels, pf_chunk=pf_chunk, pf_active=pf_active,
+            transfer=self._packed_mode(), silk_mix=True, silk_internal=self.silk_internal,
+            with_plc=with_plc, device=self.device))
 
     def _mixed_plan_serving_step(self, lm: int, pf_chunk: int, pf_active: bool,
                                  size_class: tuple, with_plc):
         key = ("plan", lm, pf_chunk, pf_active, size_class, with_plc)
-        if key not in self._steps:
-            self._steps[key] = make_plan_serving_step(
-                lm, self.batch, self.channels, pf_chunk=pf_chunk, pf_active=pf_active,
-                size_class=size_class, with_plc=with_plc, silk_mix=True,
-                silk_internal=self.silk_internal, device=self.device)
-        return self._steps[key]
+        return self._served(key, lambda: make_plan_serving_step(
+            lm, self.batch, self.channels, pf_chunk=pf_chunk, pf_active=pf_active,
+            size_class=size_class, with_plc=with_plc, silk_mix=True,
+            silk_internal=self.silk_internal, device=self.device))
 
     def _alloc_packed_slots(self, frame48: int, n_slots: int) -> tuple[list, torch.Tensor]:
         """Packed mixed slots (packed_offsets with the SILK region) over
-        pinned host buffers, and the device buffer they upload into."""
+        pinned host buffers, and the device buffer they upload into (one a
+        frame length, kept: `_device_buffer`)."""
         B = self.batch
         mode = self._packed_mode()
         sw = self._silk_shape(frame48)[1]
@@ -354,51 +353,49 @@ class BatchedOpusDecoder(ServingSlots):
                 meta=buf[off["meta"] : off["gains"]].reshape(B, 16),
                 gains=buf[off["gains"] : off["end"]].view(np.float32).reshape(B, 3),
             ))
-        return slots, torch.empty(off["end"], dtype=torch.int32, device=self.device)
+        return slots, self._device_buffer(("packed", frame48), off["end"])
 
     def _alloc_plan_slots(self, frame48: int, n_slots: int) -> tuple[list, torch.Tensor]:
         """Mixed plan slots (plan_slot_views with the SILK staging and row
-        map) over pinned host buffers, and their device buffer."""
+        map) over pinned host buffers, each behind its head
+        (`_plan_host_buffer`), and their device buffer (head and slot; one
+        a frame length, kept)."""
         sw = self._silk_shape(frame48)[1]
         words = plan_slot_words(self.batch, PLAN_ARENA_WORDS, sw)
         slots = []
         for _ in range(n_slots):
-            host, copied = self._host_buffer(words)
-            slot = plan_slot_views(host.numpy(), self.batch, PLAN_ARENA_WORDS, sw)
-            slot.update(host=host, copied=copied, frame48=frame48)
+            bufs = self._plan_host_buffer(words)
+            slot = plan_slot_views(bufs["host"].numpy(), self.batch, PLAN_ARENA_WORDS, sw)
+            slot.update(bufs, frame48=frame48)
             slots.append(slot)
-        return slots, torch.empty(words, dtype=torch.int32, device=self.device)
+        return slots, self._device_buffer(("plan", frame48), self.PLAN_HEAD + words)
 
     def _serve_state_and_ring(self, frame48: int):
         state = getattr(self, "_serve_state", None)
         if state is None:
             state = self._serve_state = init_state(self.batch, self.channels, device=self.device,
                                                    silk_hist=self.silk_internal)
-        ring = getattr(self, "_serve_ring", None)
-        if ring is None or ring.shape[1] != frame48:
-            ring = self._serve_ring = torch.zeros(self.batch, frame48, self.channels,
-                                                  device=self.device)
-        return state, ring
+        self._serve_ring = self._ring(frame48)
+        return state, self._serve_ring
 
     def _step_picks(self, slot) -> tuple:
         """The host's per-step picks from the slot: (lm, post-filter chunk,
-        active, concealment variant, SILK rate counts or None)."""
+        active, concealment variant)."""
         meta = slot["meta"]
         chunk, active = pf_chunk_for(meta[:, 6:9], slot["gains"])
-        rates = silk_rate_counts(meta[:, 12] & 0xFF) if self.silk_internal else None
-        return self._step_lm(meta), chunk, active, self._plc_variant(meta), rates
+        return self._step_lm(meta), chunk, active, self._plc_variant(meta)
 
     def _packed_step(self, packets, slot, dev_buf, state, ring):
         """Plane A into a packed mixed slot, one upload, one serving step,
         then the transition crossfades on the ring."""
         self._reuse(slot)
         corrs = self._plane_a_packed(packets, slot)
-        lm, chunk, active, with_plc, rates = self._step_picks(slot)
+        lm, chunk, active, with_plc = self._step_picks(slot)
         self._upload(slot, dev_buf, dev_buf.shape[0])
         slot["upload_words"] = dev_buf.shape[0]
         plc = self._serve_plc_state(self.channels) if with_plc else ()
         step = self._mixed_serving_step(lm, chunk, active, with_plc)
-        _, _, digest = step(state, ring, dev_buf, *plc, rates=rates)
+        _, _, digest = step(state, ring, dev_buf, *plc)
         apply_corrections(ring, corrs, slot["frame48"])
         return digest
 
@@ -409,7 +406,8 @@ class BatchedOpusDecoder(ServingSlots):
         device runs step t (a slot is rewritten only after its previous
         copy completed).  Frames of 20 ms or shorter (longer SILK-only
         frames never touch the device: use decode_frames).  State, PCM ring
-        and the conceal's LPC and pitch persist across calls.
+        and the conceal's LPC and pitch persist across calls.  On a CUDA
+        device a step is the replay of its variant's CUDA graph.
 
         Returns the final step's digest (np[2]); the last frame's PCM stays
         on the device in `self._serve_ring` [B, frame48, C]."""
@@ -439,9 +437,11 @@ class BatchedOpusDecoder(ServingSlots):
     def _serve_plan(self, batches: list, frame48: int, n_slots: int) -> np.ndarray:
         """Plan-mode serving loop: per step the upload is the plan slot's
         used prefix (fixed regions, used arena) and the compacted SILK rows
-        right after it; the device rebuilds the CELT spectra with the plan
-        executor.  A step whose plan overflows a capacity is decoded again
-        on the packed path for just that step (the state is shared)."""
+        right after it, behind the slot's head, which carries where the
+        rows start and where the upload ends; the device rebuilds the CELT
+        spectra with the plan executor.  A step whose plan overflows a
+        capacity is decoded again on the packed path for just that step
+        (the state is shared)."""
         if (getattr(self, "_plan_slots", None) is None or len(self._plan_slots) != n_slots
                 or self._plan_slots[0]["frame48"] != frame48):
             self._plan_slots, self._plan_buf = self._alloc_plan_slots(frame48, n_slots)
@@ -462,14 +462,13 @@ class BatchedOpusDecoder(ServingSlots):
                 self.plan_fallbacks += 1
                 digest = self._packed_step(packets, pk, self._fallback_buf, state, ring)
                 continue
-            lm, chunk, active, with_plc, rates = self._step_picks(slot)
+            lm, chunk, active, with_plc = self._step_picks(slot)
             silk_at, words = pack_plan_silk(slot)
             slot["upload_words"] = words
-            self._upload(slot, self._plan_buf, words)
+            buf, end, at = self._upload_plan(slot, self._plan_buf, words, silk_at)
             plc = self._serve_plc_state(self.channels) if with_plc else ()
             step = self._mixed_plan_serving_step(lm, chunk, active, self._plan_size_class(slot),
                                                  with_plc)
-            _, _, digest = step(state, ring, self._plan_buf[:words], *plc, silk_at=silk_at,
-                                rates=rates)
+            _, _, digest = step(state, ring, buf, *plc, end=end, silk_at=at)
             apply_corrections(ring, corrs, frame48)
         return digest.cpu().numpy()

@@ -7,7 +7,9 @@ opus_tpu.batch.pipeline.BatchedCeltDecoder).
 * Plane B (device): the synthesis steps of opus_tpu_torch.dsp.synthesis
   turn the whole batch's planes into PCM at once; on the plan transfer
   the plan executor (dsp/plan_exec.py) first rebuilds the band spectra
-  from plane A's pulse-vector plan.
+  from plane A's pulse-vector plan.  On a CUDA device serve() captures
+  each step variant once as a CUDA graph and replays it (dsp/graphs.py);
+  on the CPU the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..celt import modes
+from ..dsp.graphs import CapturedStep, SharedPool, eager
 from ..dsp.synthesis import (
     SynthState,
     init_state,
@@ -38,9 +41,16 @@ TRANSFERS = ("f32", "q14", "p12", "p10", "p8", "plan")
 class ServingSlots:
     """What both decoders (BatchedCeltDecoder and the mixed-mode
     BatchedOpusDecoder) share: for their serve loops, pinned host slots
-    with the CUDA event of their last copy, the upload, and the host's
-    per-step picks of the plan executor's size class and of the
-    concealment variant; and the run_pipelined loop."""
+    with the CUDA event of their last copy, the upload, the device buffers
+    and rings the serving steps are bound to, the steps themselves (a
+    CUDA graph each on the card), and the host's per-step picks of the
+    plan executor's size class and of the concealment variant; and the
+    run_pipelined loop."""
+
+    #: int32 words ahead of a plan slot in its upload: the step's device
+    #: scalars (word 0 the upload's end, word 1 the SILK rows' offset, in
+    #: words of the slot), padded so that the slot stays 16-byte aligned.
+    PLAN_HEAD = 4
 
     #: Plan executor size classes (p_max, f_max, iyw): the leaf-table and
     #: pulse-word windows.  The serve loop picks the smallest class the
@@ -71,6 +81,45 @@ class ServingSlots:
         return (torch.zeros(words, dtype=torch.int32, pin_memory=pin),
                 torch.cuda.Event() if pin else None)
 
+    def _plan_host_buffer(self, words: int) -> dict:
+        """A plan slot's pinned host buffer behind PLAN_HEAD words of
+        head: {host: the slot's `words`, head: the whole buffer, copied}."""
+        head, copied = self._host_buffer(self.PLAN_HEAD + words)
+        return dict(host=head[self.PLAN_HEAD :], head=head, copied=copied)
+
+    def _init_serving(self) -> None:
+        """The serving steps by variant key, and what they are bound to:
+        the device buffers by slot kind, the rings by frame length and, on
+        a CUDA device, the graphs' shared pool."""
+        self._steps: dict = {}
+        self._dev_bufs: dict = {}
+        self._rings: dict = {}
+        self._pool = SharedPool(self.device) if self.device.type == "cuda" else None
+
+    def _device_buffer(self, key, words: int) -> torch.Tensor:
+        """The int32 device buffer one kind of slot uploads into, made once
+        per key and kept: a captured step is bound to its address."""
+        if key not in self._dev_bufs:
+            self._dev_bufs[key] = torch.empty(words, dtype=torch.int32, device=self.device)
+        return self._dev_bufs[key]
+
+    def _ring(self, frames: int) -> torch.Tensor:
+        """The PCM ring [B, frames, C], one a frame length, kept (a
+        captured step is bound to it)."""
+        if frames not in self._rings:
+            self._rings[frames] = torch.zeros(self.batch, frames, self.channels,
+                                              device=self.device)
+        return self._rings[frames]
+
+    def _served(self, key, make):
+        """The serving step of variant `key`, made by make() on first use:
+        on a CUDA device a CapturedStep (captured on its first call and
+        replayed after), on the CPU the step itself."""
+        if key not in self._steps:
+            step = make()
+            self._steps[key] = step if self._pool is None else CapturedStep(step, self._pool)
+        return self._steps[key]
+
     def _plan_size_class(self, slot) -> tuple:
         c = slot["header"][:, 1]
         pvq_mx = int((c & 0x1FF).max(initial=0))
@@ -95,6 +144,19 @@ class ServingSlots:
         dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
         if slot["copied"] is not None:
             slot["copied"].record()
+
+    def _upload_plan(self, slot, dev_buf, words: int, silk_at: int = 0) -> tuple:
+        """The plan upload: the step's scalars into the slot's head, then
+        head and the slot's first `words` words in one copy to dev_buf
+        (PLAN_HEAD + the slot's words).  Returns the step's inputs bound to
+        dev_buf: (the slot's words, end, silk_at), the last two 0-d
+        views of the head on the device."""
+        slot["head"].numpy()[:2] = words, silk_at
+        dev_buf[: self.PLAN_HEAD + words].copy_(slot["head"][: self.PLAN_HEAD + words],
+                                                non_blocking=True)
+        if slot["copied"] is not None:
+            slot["copied"].record()
+        return dev_buf[self.PLAN_HEAD :], dev_buf[0], dev_buf[1]
 
     @staticmethod
     def _reuse(slot) -> None:
@@ -151,7 +213,7 @@ class BatchedCeltDecoder(ServingSlots):
         self.device = torch.device(device)
         self.native = NativeBatchFrontEnd(batch, channels, downsample)
         self.state = init_state(batch, channels, device=self.device)
-        self._steps: dict = {}
+        self._init_serving()
         #: plan steps served as a q14 spectrum because the plan overflowed
         self.plan_fallbacks = 0
 
@@ -229,25 +291,16 @@ class BatchedCeltDecoder(ServingSlots):
                                    lambda prepared: self._dispatch(*prepared), batches)
 
     def _serving_step(self, lm: int, pf_chunk: int, pf_active: bool, mode: str):
-        key = ("serve", lm, pf_chunk, pf_active, mode)
-        if key not in self._steps:
-            self._steps[key] = make_serving_step(
-                lm, self.batch, self.channels, self.downsample,
-                pf_chunk=pf_chunk, pf_active=pf_active, transfer=mode,
-                device=self.device,
-            )
-        return self._steps[key]
+        return self._served(("serve", lm, pf_chunk, pf_active, mode), lambda: make_serving_step(
+            lm, self.batch, self.channels, self.downsample, pf_chunk=pf_chunk,
+            pf_active=pf_active, transfer=mode, device=self.device))
 
     def _plan_serving_step(self, lm: int, pf_chunk: int, pf_active: bool,
                            size_class: tuple, with_plc: bool | int = False):
         key = ("plan", lm, pf_chunk, pf_active, size_class, with_plc)
-        if key not in self._steps:
-            self._steps[key] = make_plan_serving_step(
-                lm, self.batch, self.channels, self.downsample,
-                pf_chunk=pf_chunk, pf_active=pf_active, size_class=size_class,
-                with_plc=with_plc, device=self.device,
-            )
-        return self._steps[key]
+        return self._served(key, lambda: make_plan_serving_step(
+            lm, self.batch, self.channels, self.downsample, pf_chunk=pf_chunk,
+            pf_active=pf_active, size_class=size_class, with_plc=with_plc, device=self.device))
 
     def _alloc_slots(self, n_slots: int, mode: str) -> list:
         """Packed serving slots, laid out as packed_offsets: one int32
@@ -276,13 +329,14 @@ class BatchedCeltDecoder(ServingSlots):
 
     def _alloc_plan_slots(self, n_slots: int) -> list:
         """Plan slots (native/frontend.py plan_slot_views) over host
-        buffers of the full arena capacity, with their CUDA events."""
+        buffers of the full arena capacity, each behind its head
+        (`_plan_host_buffer`), with their CUDA events."""
         words = self.batch * (PLAN_FIXED_WORDS + PLAN_ARENA_WORDS)
         slots = []
         for _ in range(n_slots):
-            host, copied = self._host_buffer(words)
-            slot = plan_slot_views(host.numpy(), self.batch, PLAN_ARENA_WORDS)
-            slot.update(host=host, copied=copied)
+            bufs = self._plan_host_buffer(words)
+            slot = plan_slot_views(bufs["host"].numpy(), self.batch, PLAN_ARENA_WORDS)
+            slot.update(bufs)
             slots.append(slot)
         return slots
 
@@ -295,9 +349,7 @@ class BatchedCeltDecoder(ServingSlots):
 
     def _ring_for(self, ring, lm: int):
         n = ((1 << lm) * modes.SHORT_MDCT_SIZE) // self.downsample
-        if ring is None or ring.shape[1] != n:
-            ring = torch.zeros(self.batch, n, self.channels, device=self.device)
-        return ring
+        return ring if ring is not None and ring.shape[1] == n else self._ring(n)
 
     def _serve_state_and_ring(self):
         state = getattr(self, "_serve_state", None)
@@ -306,8 +358,9 @@ class BatchedCeltDecoder(ServingSlots):
         return state, getattr(self, "_serve_ring", None)
 
     def _packed_step(self, state, ring, packets, frame_size, slot, dev_buf, mode,
-                     stream_channels):
-        """Plane A into a packed slot, one upload, one serving step."""
+                     stream_channels, captured: bool = True):
+        """Plane A into a packed slot, one upload, one serving step (its
+        CUDA graph on the card unless not `captured`)."""
         self._reuse(slot)
         self.native.decode_batch_q15_into(packets, frame_size, slot, stream_channels)
         lm = self._step_lm(slot["meta"])
@@ -316,7 +369,7 @@ class BatchedCeltDecoder(ServingSlots):
         self._upload(slot, dev_buf, dev_buf.shape[0])
         ring = self._ring_for(ring, lm)
         step = self._serving_step(lm, pf_chunk, pf_active, mode)
-        return step(state, ring, dev_buf)
+        return (step if captured else eager(step))(state, ring, dev_buf)
 
     def serve(self, batches: list, frame_size: int, n_slots: int = 4,
               stream_channels=None) -> np.ndarray:
@@ -326,7 +379,9 @@ class BatchedCeltDecoder(ServingSlots):
         Every device call is asynchronous, so plane A of step t+1 runs on
         the host while the device runs step t.  A slot is rewritten only
         after its previous copy's event has completed.  State and PCM ring
-        are updated in place and persist across calls.
+        are updated in place and persist across calls.  On a CUDA device a
+        step is the replay of its variant's CUDA graph, captured at the
+        variant's first step (dsp/graphs.py).
 
         Returns the final step's digest (np[2]); the last frame's PCM stays
         on the device in `self._serve_ring` [B, frame, C].
@@ -337,13 +392,12 @@ class BatchedCeltDecoder(ServingSlots):
         if (not hasattr(self, "_slots") or len(self._slots) != n_slots
                 or self._slots[0]["mode"] != mode):
             self._slots = self._alloc_slots(n_slots, mode)
-            self._dev_buf = torch.empty(packed_offsets(self.batch, mode)["end"],
-                                        dtype=torch.int32, device=self.device)
+        dev_buf = self._device_buffer(mode, packed_offsets(self.batch, mode)["end"])
         state, ring = self._serve_state_and_ring()
         digest = None
         for t, packets in enumerate(batches):
             state, ring, digest = self._packed_step(
-                state, ring, packets, frame_size, self._slots[t % n_slots], self._dev_buf,
+                state, ring, packets, frame_size, self._slots[t % n_slots], dev_buf,
                 mode, stream_channels)
         self._serve_state = state
         self._serve_ring = ring
@@ -357,7 +411,11 @@ class BatchedCeltDecoder(ServingSlots):
         device rebuilds the spectra from that prefix before synthesis.
 
         A step whose plan overflows the arena ships as a q14 spectrum for
-        just that step (the synthesis state is shared by both step kinds).
+        just that step (the synthesis state is shared by both step kinds),
+        eagerly: it is the one step a card serves without its graph.  The
+        device buffer holds the plan slot behind its head (PLAN_HEAD): the
+        step reads the whole buffer and where the upload ends from the
+        head, so one graph serves every upload length.
         A step with pitch-regime losses (a stream's first lost frames:
         plane A ships an empty plan flagged in meta[14]) runs a step
         variant that conceals them on the device (`_plc_variant`); the
@@ -375,12 +433,10 @@ class BatchedCeltDecoder(ServingSlots):
         B = self.batch
         if not hasattr(self, "_plan_slots") or len(self._plan_slots) != n_slots:
             self._plan_slots = self._alloc_plan_slots(n_slots)
-            self._plan_buf = torch.empty(self._plan_slots[0]["buf"].shape[0],
-                                         dtype=torch.int32, device=self.device)
+        plan_buf = self._device_buffer("plan", self._plan_slots[0]["head"].shape[0])
         if not hasattr(self, "_plan_q14_slots"):
             self._plan_q14_slots = self._alloc_slots(2, "q14")
-            self._plan_q14_buf = torch.empty(packed_offsets(B, "q14")["end"],
-                                             dtype=torch.int32, device=self.device)
+        q14_buf = self._device_buffer("q14", packed_offsets(B, "q14")["end"])
         state, ring = self._serve_state_and_ring()
         plc_state = self._serve_plc_state(self.channels)
         digest = None
@@ -395,20 +451,19 @@ class BatchedCeltDecoder(ServingSlots):
                 q14_slot = self._plan_q14_slots[self.plan_fallbacks % 2]
                 self.plan_fallbacks += 1
                 state, ring, digest = self._packed_step(
-                    state, ring, packets, frame_size, q14_slot, self._plan_q14_buf, "q14",
-                    stream_channels)
+                    state, ring, packets, frame_size, q14_slot, q14_buf, "q14",
+                    stream_channels, captured=False)
                 continue
             meta = slot["meta"]
             lm = self._step_lm(meta)
             with_plc = self._plc_variant(meta)
             pf_chunk, pf_active = pf_chunk_for(meta[:, 6:9], slot["gains"])
-            words = self._plan_upload_words(slot)
-            self._upload(slot, self._plan_buf, words)
+            buf, end, _ = self._upload_plan(slot, plan_buf, self._plan_upload_words(slot))
             ring = self._ring_for(ring, lm)
             step = self._plan_serving_step(lm, pf_chunk, pf_active,
                                            self._plan_size_class(slot), with_plc)
             plc = plc_state if with_plc else ()
-            state, ring, digest = step(state, ring, self._plan_buf[:words], *plc)
+            state, ring, digest = step(state, ring, buf, *plc, end=end)
         self._serve_state = state
         self._serve_ring = ring
         return digest.cpu().numpy()

@@ -19,9 +19,14 @@ leaf's start scattered, a running maximum along the row, a coverage
 check) instead of interval one-hot matmuls, per-leaf sums are
 scatter-adds (exact: integer sums of squares stay below 2^24), the
 pulse-word fetch is a two-word gather and the chain permutation of the
-stride-2 rotation pass is a gather.  Integers ride in int64: the wire's
-u32 words are masked to 32 bits, and products that the reference takes
-mod 2^32 are split so that no int64 product overflows.
+stride-2 rotation pass is a gather.  The fold leaves' float energy sums
+are differences of a float64 prefix sum over the band at each leaf run's
+ends: a float scatter-add's atomics would sum in another order on every
+call (a step captured as a CUDA graph must equal its eager run bit for
+bit), and a one-hot product's order would change with the size class.
+Integers ride in int64: the wire's u32 words are masked to 32 bits, and
+products that the reference takes mod 2^32 are split so that no int64
+product overflows.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..celt import modes
 from ..native.frontend import PLAN_A_MAX, PLAN_IYW
@@ -150,10 +156,14 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
     """Build the plan executor for one frame shape.
 
     Returns f(header [B,2] i32, bands [B,24] i32, meta [B,16] i32,
-    arena [AW] i32) -> X [B, 2, N] f32 natural-domain band spectra, with
-    header = {arena offset, n_pvq | n_fill<<9 | n_ac<<18} and bands = 16
-    words of 21x24-bit config fields + 8 words of 21x11-bit eff fields
-    (native/frontend.py pack_plan_fixed).
+    arena [AW] i32, used=None) -> X [B, 2, N] f32 natural-domain band
+    spectra, with header = {arena offset, n_pvq | n_fill<<9 | n_ac<<18}
+    and bands = 16 words of 21x24-bit config fields + 8 words of 21x11-bit
+    eff fields (native/frontend.py pack_plan_fixed).  `used` is how many
+    of the arena's words the step uploaded (an int or a 0-d int tensor on
+    the device; default all AW): the window fetch clamps to the last of
+    them, so a whole buffer with a device count fetches the words its
+    uploaded prefix would.
 
     p_max / f_max / iyw are the size class (the serve loop's
     PLAN_CLASSES): the leaf-table and pulse-word windows.  A step whose
@@ -183,6 +193,10 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
     oh = torch.zeros(n, NB, dtype=torch.float32, device=device)
     oh[torch.arange(int(e[NB]), device=device), bb[: int(e[NB])]] = 1.0
     factor_tbl = torch.tensor([15, 15, 10, 5], dtype=torch.int64, device=device)
+    # band start, width and plane offset (plane * width - start) of each bin
+    blo = e_dev[bb]
+    bhi = e_dev[(bb + 1).clamp_max(NB)]
+    plane_off = torch.arange(2, device=device)[:, None] * (bhi - blo) - blo
     w0_word = torch.tensor([(24 * i) >> 5 for i in range(NB)], device=device)
     w0_sh = torch.tensor([(24 * i) & 31 for i in range(NB)], device=device)
     eff_word = torch.tensor([(11 * i) >> 5 for i in range(NB)], device=device)
@@ -201,11 +215,10 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
         return (lo | hi) & ((1 << bits) - 1)
 
     @torch.no_grad()
-    def executor(header, bands, meta, arena_i32):
+    def executor(header, bands, meta, arena_i32, used=None):
         B = batch
         dev = arena_i32.device
-        arena = arena_i32.to(torch.int64) & _U32
-        amax = arena.shape[0] - 1
+        amax = (arena_i32.shape[0] if used is None else used) - 1
         hdr_off = header[:, 0].to(torch.int64)
         counts = header[:, 1].to(torch.int64)
         # The arena layout is [pvq 1w][fill 3w][ac 2w][iy]: every offset
@@ -228,7 +241,9 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
             ac_off[:, None].expand(B, 2 * PLAN_A_MAX),
             (hdr_off + iy_rel)[:, None].expand(B, iyw),
         ], dim=1)
-        merged = arena[(starts + win_off).clamp(0, amax)]
+        at = (starts + win_off).clamp_min(0)
+        at = torch.minimum(at, amax) if torch.is_tensor(amax) else at.clamp_max(amax)
+        merged = arena_i32[at].to(torch.int64) & _U32
 
         # ---- pvq leaf table [B, P] (one-word records) ----
         p = torch.arange(p_max, device=dev)
@@ -414,11 +429,19 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
         # fold source index into [ld2 plane 0 | plane 1] of the band
         sr = torch.minimum((fsrc_p + frel).reshape(B, 2, n).clamp_min(0), width_p - 1)
         srcw_v = fnorm2_p.reshape(B, 2, n).clamp(0, 1) * width_p + sr
-        fid_v = torch.where(fcov, fleaf, f_max).reshape(B, 2, n)
+        # Each fold position's leaf run within its band (the leaf clipped
+        # to the band), as band-local [plane 0 | plane 1] indices of the
+        # run's first position and one past its last, for the prefix sums
+        # of the band walk; any other position is a run of its own.
+        fstart = ffd_p.reshape(B, 2, n) - torch.arange(2, device=dev)[:, None] * n
+        fend = fstart + fat(fln).reshape(B, 2, n)
+        q = torch.arange(n, device=dev)
+        run_lo = torch.where(fold_v, torch.maximum(fstart, blo), q) + plane_off
+        run_hi = torch.where(fold_v, torch.minimum(fend, bhi), q + 1) + plane_off
+        fgain_v = fat(fgain, 0.0).reshape(B, 2, n)
         # Fold dither reuses the noise section's jumped LCG draws (same
         # t = frel + 1 seeds); garbage outside fold leaves is masked.
         dith_v = torch.where((sv & 0x8000) != 0, 1.0 / 256.0, -1.0 / 256.0).reshape(B, 2, n)
-        fgain_x = torch.cat([fgain, torch.zeros(B, 1, device=dev)], dim=1)
 
         norm = torch.zeros((B, 2, norm_len), dtype=torch.float32, device=dev)
         # Hybrid streams (start band 17): plane A emits eff fold offsets
@@ -427,7 +450,6 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
         hyb = meta[:, 4] == 17
         e17m = int(e[17])
         effv = torch.minimum((beff + torch.where(hyb, e17m, 0)[:, None]).clamp_min(0), eff_max)
-        leafsums = torch.zeros(NB, B, f_max + 1, dtype=torch.float32, device=dev)
         isw_m = isw_b == 1
         dual_m = dual_b == 1
 
@@ -462,10 +484,10 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
             has_fold = fold_v[:, :, lo_:hi_]
             fill = torch.where(has_fold, lval + dith_v[:, :, lo_:hi_], 0.0)
             # per-leaf renormalisation over this band's positions
-            fid = fid_v[:, :, lo_:hi_].reshape(B, 2 * nb_)
-            leafsum = leafsums[i].scatter_add_(1, fid, (fill * fill).reshape(B, 2 * nb_))
-            scale_leaf = fgain_x / torch.sqrt(EPSILON + leafsum)
-            scale = scale_leaf.gather(1, fid).reshape(B, 2, nb_)
+            csum = F.pad(torch.cumsum((fill * fill).reshape(B, 2 * nb_).double(), 1), (1, 0))
+            ends = [r[:, :, lo_:hi_].reshape(B, 2 * nb_) for r in (run_lo, run_hi)]
+            leafsum = (csum.gather(1, ends[1]) - csum.gather(1, ends[0])).to(torch.float32)
+            scale = fgain_v[:, :, lo_:hi_] / torch.sqrt(EPSILON + leafsum.reshape(B, 2, nb_))
             xb = torch.where(has_fold, fill * scale, X[:, :, lo_:hi_])
 
             # undo transform; the stereo merge waits until after the walk

@@ -13,15 +13,18 @@ turns them into PCM for a whole batch of streams:
 Mixed-mode serving (silk_mix) adds the SILK PCM of SILK and hybrid
 streams after synthesis (decoder.rs:722-729: out = celt + silk/32768):
 shipped at 48 kHz, or at the internal rate and resampled on the device by
-one matmul per rate over the streams of that rate (`_silk_resample`, banks
-from dsp/resample.py).
+one matmul per rate over every stream, each stream keeping the product of
+its own rate (`_silk_resample`, banks from dsp/resample.py).
 
 Layouts are the reference's: planes [B, C, N], PCM [B, n, C], and the same
 packed-slot and plan-slot word offsets.  `make_synthesis_step` is
 functional (it returns a new state); the serving steps (packed:
 make_serving_step; plan: make_plan_serving_step, whose spectra come from
 the plan executor) update state and PCM ring in place, which stands in
-for the reference's buffer donation.
+for the reference's buffer donation.  Their shapes depend on the step
+variant alone, never on a step's data, so that each variant can be
+captured once as a CUDA graph (dsp/graphs.py): a plan step reads where
+its upload ends from a device scalar.
 """
 
 from __future__ import annotations
@@ -324,28 +327,21 @@ def _resample_banks(frame48: int) -> np.ndarray:
     return resample_matrices(frame48)[0]
 
 
-def silk_rate_counts(desc: np.ndarray) -> tuple[int, int, int]:
-    """Host side of `_silk_resample`: how many streams ship SILK at 8, 12
-    and 16 kHz, from the descriptors plane A wrote (meta[12] & 0xFF)."""
-    khz = np.asarray(desc) & 0x1F
-    return tuple(int((khz == k).sum()) for k in SILK_KHZ)
-
-
-def _silk_resample(y16, desc, hist, lm: int, channels: int, rates: tuple):
+def _silk_resample(y16, desc, hist, lm: int, channels: int):
     """The device SILK resampler: internal-rate planar rows -> 48 kHz.
 
     y16 [B, channels*Lmax] f32 (int16 scale, Lmax = frame48/3): channel-
     planar internal-rate PCM as plane A writes it.  desc [B] int =
     khz | (nrows-1)<<5 | reset<<6, 0 for a stream without SILK this frame.
     hist [B, C, TAIL] is the carried input tail (SynthState.silk_hist).
-    rates = silk_rate_counts(desc), the host's count of streams per rate.
 
-    The streams are grouped by rate on the device (a stable sort of the
-    rate codes, so no sync), and each rate is one [n*C, TAIL+n_in] x
-    [TAIL+n_in, frame48] product over its own n streams.  A stream
-    without SILK gets zero PCM and a zero tail, as the reference's one-hot
-    selection gives (the resampler reset libopus performs when SILK
-    restarts).  Returns (silk48 [B, frame48, C], new_hist).
+    Fixed capacity: each rate is one [B*C, TAIL+n_in] x [TAIL+n_in,
+    frame48] product over every stream, and a stream keeps the product
+    (and the next tail) of its own rate, so no shape depends on how many
+    streams ship each rate.  A stream without SILK gets zero PCM and a
+    zero tail, as the reference's one-hot selection gives (the resampler
+    reset libopus performs when SILK restarts).  Returns (silk48 [B,
+    frame48, C], new_hist).
     """
     frame48 = (1 << lm) * modes.SHORT_MDCT_SIZE
     lmax = frame48 // 3
@@ -361,21 +357,16 @@ def _silk_resample(y16, desc, hist, lm: int, channels: int, rates: tuple):
         y = torch.where(two_rows[:, None, None], y, y[:, :1].expand(-1, 2, -1))
     hist = torch.where(reset[:, None, None], 0.0, hist)
     xext = torch.cat([hist, y], dim=-1)  # [B, C, TAIL + lmax]
-    order = torch.argsort(torch.where(khz == 0, 0x1F, khz), stable=True)
     out = torch.zeros(B, channels, frame48, device=y16.device)
     new_hist = torch.zeros_like(hist)
-    start = 0
-    for r, n in enumerate(rates):
-        if n == 0:
-            continue
-        idx = order[start : start + n]
-        start += n
-        n_in = frame48 * SILK_KHZ[r] // 48
-        x = xext.index_select(0, idx)[..., : TAIL + n_in]
-        o = torch.matmul(x.reshape(n * channels, TAIL + n_in), banks[r, : TAIL + n_in])
-        out.index_copy_(0, idx, o.reshape(n, channels, frame48))
+    for r, k in enumerate(SILK_KHZ):
+        n_in = frame48 * k // 48
+        x = xext[..., : TAIL + n_in]
+        o = torch.matmul(x.reshape(B * channels, TAIL + n_in), banks[r, : TAIL + n_in])
+        sel = (khz == k)[:, None, None]
+        out = torch.where(sel, o.reshape(B, channels, frame48), out)
         # the next step's tail: the last TAIL input samples at this rate
-        new_hist.index_copy_(0, idx, x[..., n_in:])
+        new_hist = torch.where(sel, x[..., n_in:], new_hist)
     return out.transpose(1, 2), new_hist
 
 
@@ -387,18 +378,16 @@ def _silk_words(lm: int, channels: int, silk_internal: bool) -> tuple[int, int]:
 
 
 def _make_silk(lm: int, channels: int, silk_internal: bool, *, device):
-    """silk(state, pcm, meta, rates) -> (silk [B, frame, C] f32, the new
+    """silk(state, pcm, meta) -> (silk [B, frame, C] f32, the new
     resampler tail or None): pcm [B, samps] int16-scale rows of the slot."""
     n = modes.SHORT_MDCT_SIZE << lm
     if silk_internal:
         on_device(_resample_banks, device, n)
 
-    def silk(state, pcm, meta, rates):
+    def silk(state, pcm, meta):
         if not silk_internal:
             return pcm.reshape(-1, n, channels), None
-        if rates is None:
-            raise ValueError("the internal SILK transfer needs the step's rate counts")
-        return _silk_resample(pcm, meta[:, 12] & 0xFF, state.silk_hist, lm, channels, rates)
+        return _silk_resample(pcm, meta[:, 12] & 0xFF, state.silk_hist, lm, channels)
 
     return silk
 
@@ -457,8 +446,7 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
     silk_mix adds the mixed pipeline's SILK region (packed_offsets with
     silk_words): 48 kHz interleaved int16, or with silk_internal the
     internal-rate rows that `_silk_resample` takes to 48 kHz, the step
-    then taking the host's rate counts as step(..., rates=(n8, n12, n16))
-    and updating state.silk_hist in place.  with_plc adds the device
+    then updating state.silk_hist in place.  with_plc adds the device
     conceal (`_make_conceal`): step(state, ring, buf, plc_lpc, plc_pitch).
     """
     if transfer != "q14" and transfer not in PACK_BITS:
@@ -488,12 +476,12 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
         return xs, ble, meta, gains
 
     @torch.no_grad()
-    def step(state: SynthState, ring, buf, *plc, rates=None):
+    def step(state: SynthState, ring, buf, *plc):
         xs, ble, meta, gains = unpack(buf)
         silk = (None, None)
         if silk_mix:
             rows = buf[off["silk"] : off["ble"]].view(torch.int16).reshape(batch, 2 * silk_words)
-            silk = silk_of(state, rows[:, :silk_samps].to(torch.float32), meta, rates)
+            silk = silk_of(state, rows[:, :silk_samps].to(torch.float32), meta)
         return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
     return step
@@ -514,15 +502,19 @@ def _run_core(core, around, state, ring, planes, plc, silk):
     return state, ring, digest
 
 
-def expand_silk_rows(rows, smap, silk_words: int, silk_samps: int):
-    """The compacted SILK block -> [B, silk_samps] f32, each stream's row:
-    rows [nrows * silk_words] int32 words (int16 pairs), smap [B] the row
-    of each stream; an out-of-range smap selects a zero row."""
-    nrows = rows.shape[0] // silk_words
-    pcm = rows[: nrows * silk_words].view(torch.int16).reshape(nrows, 2 * silk_words)
-    pcm = pcm[:, :silk_samps].to(torch.float32)
-    pcm = torch.cat([pcm, pcm.new_zeros(1, silk_samps)])
-    return pcm.index_select(0, torch.where((smap >= 0) & (smap < nrows), smap, nrows))
+def expand_silk_rows(buf, at, end, smap, silk_words: int, silk_samps: int):
+    """The compacted SILK block -> [B, silk_samps] f32, each stream's row.
+
+    The rows are int32 words (int16 pairs) of `buf`, silk_words each, from
+    word `at` to word `end` (ints, or 0-d int tensors on the device);
+    smap [B] is the row of each stream, and an out-of-range smap selects a
+    zero row.  One gather of every stream's words, whatever the row count."""
+    nrows = (end - at) // silk_words
+    ok = (smap >= 0) & (smap < nrows)
+    first = at + torch.where(ok, smap, 0).to(torch.int64) * silk_words
+    idx = first[:, None] + torch.arange(silk_words, device=buf.device)
+    pcm = buf[idx.clamp_max(buf.shape[0] - 1)].view(torch.int16)[:, :silk_samps]
+    return torch.where(ok[:, None], pcm.to(torch.float32), 0.0)
 
 
 def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 1,
@@ -534,11 +526,14 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
     Same contract as make_serving_step, but `buf` holds plane A's pulse-
     vector plan: the packed fixed regions (header [B,2], ble Q9 pairs
     [B,21], dmeta [B,5], bands [B,16+8]; native/frontend.py
-    pack_plan_fixed), then the arena, which runs to the end of `buf` (the
-    serve loop passes the uploaded prefix, of any length).  The plan
-    executor rebuilds the band spectra, then the shared synthesis core
-    runs.  size_class = (p_max, f_max, iyw) is the executor's size class,
-    picked per step by the serve loop.
+    pack_plan_fixed), then the arena.  The step reads `buf` up to word
+    step(..., end=...) (the uploaded prefix's length; default the whole of
+    `buf`), an int or a 0-d int tensor on the device: the serve loop
+    passes its whole device buffer and the end as a device scalar of the
+    same upload, so one captured step serves every upload length.  The
+    plan executor rebuilds the band spectra, then the shared synthesis
+    core runs.  size_class = (p_max, f_max, iyw) is the executor's size
+    class, picked per step by the serve loop.
 
     with_plc adds the device pitch-regime loss concealment
     (dsp/plc_exec.py): streams flagged in meta[14] are concealed from the
@@ -554,8 +549,8 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
     the fixed regions maps each stream to a row of the compacted int16
     PCM block that follows the used arena (native/frontend.py
     compact_plan_silk, pack_plan_silk).  The host passes the block's word
-    offset as step(..., silk_at=...) (and, with silk_internal, the rate
-    counts as rates=...); the rows run from there to the end of `buf`.
+    offset as step(..., silk_at=...), an int or a device scalar like
+    `end`: the arena ends there and the rows run from there to `end`.
     Each stream gathers its row, or a zero row for an out-of-range smap
     (CELT-only streams and silent SILK frames): exact, as the reference's
     one-hot product is.
@@ -579,7 +574,7 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
     silk_of = _make_silk(lm, channels, silk_internal, device=device) if silk_mix else None
     around = _make_conceal(lm, batch, channels, with_plc, device=device) if with_plc else None
 
-    def unpack(buf, arena_end):
+    def unpack(buf):
         header = buf[:o_ble].reshape(B, 2)
         blew = buf[o_ble:o_dmeta].reshape(B, nbv)
         # Q9 int16 pairs -> f32 log-energies (int32 >> is arithmetic, so
@@ -612,19 +607,21 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
                             dim=1)
         bands = torch.cat([buf[o_bw0:o_beff].reshape(B, 16),
                            buf[o_beff:o_smap].reshape(B, 8)], dim=1)
-        arena = buf[o_arena:arena_end]
-        return header, ble, meta, gains, bands, arena
+        return header, ble, meta, gains, bands
 
     @torch.no_grad()
-    def step(state: SynthState, ring, buf, *plc, silk_at=None, rates=None):
+    def step(state: SynthState, ring, buf, *plc, end=None, silk_at=None):
         if silk_mix and silk_at is None:
             raise ValueError("a mixed plan step needs the SILK rows' offset (silk_at)")
-        header, ble, meta, gains, bands, arena = unpack(buf, silk_at)
-        xs = executor(header, bands, meta, arena)
+        end = buf.shape[0] if end is None else end
+        header, ble, meta, gains, bands = unpack(buf)
+        arena_end = silk_at if silk_mix else end
+        xs = executor(header, bands, meta, buf[o_arena:], arena_end - o_arena)
         silk = (None, None)
         if silk_mix:
-            rows = expand_silk_rows(buf[silk_at:], buf[o_smap:o_arena], silk_words, silk_samps)
-            silk = silk_of(state, rows, meta, rates)
+            rows = expand_silk_rows(buf, silk_at, end, buf[o_smap:o_arena], silk_words,
+                                    silk_samps)
+            silk = silk_of(state, rows, meta)
         return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
     return step

@@ -19,6 +19,7 @@ from __future__ import annotations
 import datetime
 import multiprocessing
 import multiprocessing.connection
+import multiprocessing.resource_tracker
 import os
 import pathlib
 import pickle
@@ -147,8 +148,12 @@ def run_ranks(fn, world: int, *, device: str, args: tuple = (),
     module the children can import.  If a rank fails, the others are
     killed and the traceback of the rank that failed first is raised as a
     RuntimeError; past `deadline_s` every rank is killed and TimeoutError
-    raised."""
+    raised.  No process outlives the call: the ranks are joined, and the
+    resource tracker that spawning starts, when this call started it, is
+    stopped and reaped."""
     ctx = multiprocessing.get_context("spawn")
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    had_tracker = tracker._fd is not None
     tmp = tempfile.mkdtemp(prefix="opus_ranks_")
     init_method = pathlib.Path(tmp, "rendezvous").as_uri()
     procs = [ctx.Process(target=_rank_main,
@@ -188,4 +193,6 @@ def run_ranks(fn, world: int, *, device: str, args: tuple = (),
                 p.kill()
             if p.pid is not None:
                 p.join()
+        if not had_tracker:
+            tracker._stop()
         shutil.rmtree(tmp, ignore_errors=True)

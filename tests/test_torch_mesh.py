@@ -24,6 +24,7 @@ imports it to find its body, stays free of them.
 
 from __future__ import annotations
 
+import os
 import pathlib
 
 import numpy as np
@@ -385,6 +386,34 @@ def test_run_ranks_kills_ranks_past_the_deadline():
     with pytest.raises(TimeoutError, match="still running"):
         run_ranks(_rank_hangs, 2, device="cpu", deadline_s=5)
     assert time.monotonic() - t0 < 60
+
+
+def _children() -> set[tuple[int, str]]:
+    """(pid, command) of this process's children, zombies included."""
+    me, out = str(os.getpid()), set()
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # ended while listed
+            continue
+        if text[text.rindex(")") + 2:].split()[1] == me:
+            out.add((int(stat.parent.name), text[text.index("(") + 1:text.rindex(")")]))
+    return out
+
+
+@pytest.mark.parametrize("fn, raises", [(_rank_report, None), (_rank_fails, RuntimeError)],
+                         ids=["ok", "fails"])
+def test_run_ranks_leaves_no_process(fn, raises):
+    """Every process run_ranks started has ended and been reaped when it
+    returns or raises: the ranks and the resource tracker that spawning
+    starts."""
+    before = _children()
+    if raises is None:
+        run_ranks(fn, 2, device="cpu", deadline_s=120)
+    else:
+        with pytest.raises(raises):
+            run_ranks(fn, 2, device="cpu", deadline_s=120)
+    assert _children() - before == set()
 
 
 # --- the sharded serving paths -----------------------------------------------

@@ -223,11 +223,11 @@ def test_steps_match_jax_on_recorded_slots(transfer, packets, jax_serve):
                                                  with_plc=n_lost > 0,
                                                  size_class=ref._plan_size_class(jslot))
             jbuf = jnp.asarray(jslot["buf"][: ref_pack(jslot, bucket, rb)])
-            _, chunk2, active2, with_plc, rates = port._step_picks(pslot)
+            _, chunk2, active2, with_plc = port._step_picks(pslot)
             silk_at, words = pack_plan_silk(pslot)
             step = port._mixed_plan_serving_step(lm, chunk2, active2,
                                                  port._plan_size_class(pslot), with_plc)
-            kw = dict(silk_at=silk_at, rates=rates)
+            kw = dict(silk_at=silk_at)
             buf = torch.as_tensor(pslot["buf"][:words].copy())
         else:
             ref._plane_a_packed(row, jslot)
@@ -237,9 +237,9 @@ def test_steps_match_jax_on_recorded_slots(transfer, packets, jax_serve):
             has = ref.PLC_COMPACT_K if 0 < n_lost <= ref.PLC_COMPACT_K < B else n_lost > 0
             jstep = ref._mixed_serving_step(3, chunk, active, with_plc=has)
             jbuf = jnp.asarray(jslot["buf"])
-            lm, chunk2, active2, with_plc, rates = port._step_picks(pslot)
+            lm, chunk2, active2, with_plc = port._step_picks(pslot)
             step = port._mixed_serving_step(lm, chunk2, active2, with_plc)
-            kw = dict(rates=rates)
+            kw = {}
             buf = torch.as_tensor(pslot["buf"].copy())
         assert (chunk2, active2) == (chunk, active)
         variants.append(with_plc)
@@ -280,7 +280,7 @@ def test_silk_resample_matches_jax(lm):
 
     from opus_tpu.dsp.synthesis import _silk_resample as jax_resample
     from opus_tpu_torch.dsp.resample import TAIL
-    from opus_tpu_torch.dsp.synthesis import _silk_resample, silk_rate_counts
+    from opus_tpu_torch.dsp.synthesis import _silk_resample
 
     descs = [khz | (rows - 1) << 5 | reset << 6 for khz in (8, 12, 16) for rows in (1, 2)
              for reset in (0, 1)] + [0, 0, 16, 8]
@@ -292,7 +292,7 @@ def test_silk_resample_matches_jax(lm):
     hist = rng.integers(-20000, 20000, (n, 2, TAIL)).astype(np.float32)
     want, want_h = jax_resample(jnp.asarray(y16), jnp.asarray(desc), jnp.asarray(hist), lm, 2)
     got, got_h = _silk_resample(torch.tensor(y16), torch.tensor(desc), torch.tensor(hist), lm,
-                                2, silk_rate_counts(desc))
+                                2)
     assert got.shape == want.shape == (n, 120 << lm, 2)
     assert float(np.abs(got.numpy() - np.asarray(want)).max()) < 1e-5 * 32768
     assert np.array_equal(got_h.numpy(), np.asarray(want_h))
@@ -393,7 +393,7 @@ def test_compacted_silk_rows_round_trip(packets):
             assert len(slot["silk_rows"]) == 4  # the SILK and hybrid streams
             buf = torch.as_tensor(slot["buf"][:words].copy())
             smap = buf[slot["fixed_words"] - B : slot["fixed_words"]]
-            got = expand_silk_rows(buf[at:], smap, sw, samps).numpy()
+            got = expand_silk_rows(buf, at, words, smap, sw, samps).numpy()
             assert np.array_equal(got, slot["silk"][:, :samps].astype(np.float32))
             assert not got[0].any() and got[1].any()
 

@@ -326,14 +326,15 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'opus_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 57, names\n"
+        "assert len(names) >= 58, names\n"
         "new = {'opus_tpu_torch.silk', 'opus_tpu_torch.silk.decoder', 'opus_tpu_torch.silk.nlsf',\n"
         "       'opus_tpu_torch.batch.silk_pipeline', 'opus_tpu_torch.dsp.silk_synthesis',\n"
         "       'opus_tpu_torch.batch.multistream_pipeline', 'opus_tpu_torch.celt.encoder',\n"
         "       'opus_tpu_torch.celt.energy_encode', 'opus_tpu_torch.celt.plan_encoder',\n"
         "       'opus_tpu_torch.dsp.encode_exec', 'opus_tpu_torch.dsp.pvq_search',\n"
         "       'opus_tpu_torch.batch.encode_pipeline', 'opus_tpu_torch.mesh',\n"
-        "       'opus_tpu_torch.batch.sharded', 'opus_tpu_torch.dryrun'}\n"
+        "       'opus_tpu_torch.batch.sharded', 'opus_tpu_torch.dryrun',\n"
+        "       'opus_tpu_torch.dsp.graphs'}\n"
         "assert new <= set(names), new - set(names)\n"
     )
     import pathlib

@@ -6,10 +6,11 @@ Makes the payloads as chip_smoke.py does (B=1024 stereo 48 kHz CELT, 20 ms
 frames, 96 kbps, 13 steps).  For each main path (p10, plan, plan-loss:
 the plan transfer with chip_smoke.py's losses) it serves them once to
 warm up and once more timed, and prints where a serve() step's wall time
-goes: plane A, the serving step's issue on the host, the rest, and the
-device's busy and idle share under torch.profiler.  Then, for single
-serving steps on one slot, it prints beside the card's name and power
-limit:
+goes: plane A, the serving step's call on the host (the replay of its
+CUDA graph, captured in the warm-up), the rest, and the device's busy and
+idle share under torch.profiler.  Then, for single serving steps on one
+slot, run eagerly (the factory's step, whose launches are the graph's
+kernels), it prints beside the card's name and power limit:
 
 * the host time to issue one step (host clock around the call, no sync);
 * the device time per step by CUDA events over N back-to-back steps;
@@ -18,10 +19,10 @@ limit:
   launches per step by its symbol name, and the ops that take the most
   device and host time.
 
-The steps: the first p10 and plan steps; and on plan-loss, step 1 (a
-compact concealment) and step 6 (a whole-batch one), each through its
-concealing variant and through the clean variant on the same slot, with
-the difference in kernels per step (the launch budget of concealment).
+The steps: the first p10 and plan steps, each also replayed from its CUDA
+graph; and on plan-loss, step 1 (a compact concealment) and step 6 (a
+whole-batch one), each through its concealing variant and through the
+clean variant on the same slot, with the difference in kernels per step.
 
 The mixed traffic (chip_smoke.py's: one stream in three each of CELT,
 SILK WB and hybrid SWB, the plan transfer with the internal SILK
@@ -254,7 +255,7 @@ def multistream_breakdown(name: str, where: str) -> None:
     core = bmd.core
     spent = dict.fromkeys(("split", "plane A", "step issue", "unmap"), 0.0)
     bmd._split_batch = _timed(bmd._split_batch, spent, "split")
-    bmd._unmap = _timed(bmd._unmap, spent, "unmap")
+    bmd.unmap_on_device = _timed(bmd.unmap_on_device, spent, "unmap")
     decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
     setattr(core.native, decode, _timed(getattr(core.native, decode), spent, "plane A"))
     for key in list(core._steps):
@@ -308,6 +309,7 @@ def mixed_steps(batches, lossy, steps: int, where: str, out) -> None:
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.dsp.graphs import eager
     from opus_tpu_torch.dsp.synthesis import init_state
     from opus_tpu_torch.native.frontend import pack_plan_silk
 
@@ -318,7 +320,7 @@ def mixed_steps(batches, lossy, steps: int, where: str, out) -> None:
         slot = dec._alloc_plan_slots(F, 1)[0][0]
         for t, pk in enumerate(traffic):
             dec._plane_a_plan(pk, slot)
-            lm, chunk, active, with_plc, rates = dec._step_picks(slot)
+            lm, chunk, active, with_plc = dec._step_picks(slot)
             if label == "mixed" or with_plc is not False:
                 break
         silk_at, words = pack_plan_silk(slot)
@@ -328,15 +330,15 @@ def mixed_steps(batches, lossy, steps: int, where: str, out) -> None:
         lpc = torch.zeros(B, C, 24, device=dev)
         pitch = torch.full((B,), 15, dtype=torch.int32, device=dev)
         cls = dec._plan_size_class(slot)
-        kw = dict(silk_at=silk_at, rates=rates)
-        clean = dec._mixed_plan_serving_step(lm, chunk, active, cls, False)
+        kw = dict(silk_at=silk_at)
+        clean = eager(dec._mixed_plan_serving_step(lm, chunk, active, cls, False))
         n_lost = int((slot["meta"][:, 14] & 1).sum())
         name = (f"{label} step {t} ({int((slot['meta'][:, 4] == 17).sum())} hybrid, "
-                f"{len(slot['silk_rows'])} SILK rows, rates {rates}, {words} words, class {cls})")
+                f"{len(slot['silk_rows'])} SILK rows, {words} words, class {cls})")
         k_clean = profile(name if label == "mixed" else f"{name} clean variant",
                           lambda: clean(state, ring, buf, **kw), steps, where, out)
         if label == "mixed-loss":
-            lossy_step = dec._mixed_plan_serving_step(lm, chunk, active, cls, with_plc)
+            lossy_step = eager(dec._mixed_plan_serving_step(lm, chunk, active, cls, with_plc))
             k_loss = profile(f"{name} concealing {n_lost} (k={with_plc})",
                              lambda: lossy_step(state, ring, buf, lpc, pitch, **kw),
                              steps, where, out)
@@ -354,6 +356,7 @@ def main() -> int:
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
+    from opus_tpu_torch.dsp.graphs import eager
     from opus_tpu_torch.dsp.synthesis import init_state
     from opus_tpu_torch.dsp.tables import pf_chunk_for
 
@@ -398,7 +401,10 @@ def main() -> int:
                 buf = slot["host"].to(dev)
             state = init_state(B, C, device=dev)
             ring = torch.zeros(B, F, C, device=dev)
-            profile(f"{transfer} step", lambda: step(state, ring, buf), args.steps, where, out)
+            profile(f"{transfer} step", lambda: eager(step)(state, ring, buf), args.steps, where,
+                    out)
+            profile(f"{transfer} step replayed", lambda: step(state, ring, buf), args.steps,
+                    where, out)
         # plan-loss: decode up to each profiled step on the host, then
         # profile that slot's concealing and clean variants.
         dec = BatchedCeltDecoder(B, C, transfer="plan", device=dev)
@@ -417,8 +423,8 @@ def main() -> int:
             ring = torch.zeros(B, F, C, device=dev)
             lpc = torch.zeros(B, C, 24, device=dev)
             pitch = torch.full((B,), 15, dtype=torch.int32, device=dev)
-            lossy_step = dec._plan_serving_step(lm, chunk, active, cls, variant)
-            clean_step = dec._plan_serving_step(lm, chunk, active, cls)
+            lossy_step = eager(dec._plan_serving_step(lm, chunk, active, cls, variant))
+            clean_step = eager(dec._plan_serving_step(lm, chunk, active, cls))
             kind = "compact" if variant is not True else "whole-batch"
             name = f"plan-loss step {t} ({n_lost} concealed, {kind} k={variant}, class {cls})"
             k_loss = profile(name, lambda: lossy_step(state, ring, buf, lpc, pitch),
