@@ -153,6 +153,27 @@ dryrun_multichip(world, device="cuda") runs its three
 phases (synthetic CELT + SILK + regroup, the real bitstream, the mixed
 plan serve) on the card.
 
+grid: the reference's dp x tp layout (a stream's channels over two ranks,
+opus_tpu_torch.mesh.GridSpec) as ranks sharing cuda:0 under gloo, asked
+for by run_ranks' ranks_per_card (NCCL refuses two ranks on one card):
+
+* grid-1x2 and grid-2x2: dryrun_multichip(2 and 4, device="cuda",
+  ranks_per_card=2 and 4), every gate of its three phases (the channel
+  interleave over tp and the regroup over dp exact, within 1e-5 of the
+  unsharded steps, the tp replicas of the SILK rows and served rings equal
+  bit for bit, final ranges equal, CELT tails within 2e-3 of the scalar
+  decoder), the post-filter and rotation launched on every rank;
+* tp-full: the CELT synthesis step at the main path's shape (B=1024
+  stereo, lm=3, long blocks, post-filter active, a random decode history),
+  split 1 x 2 over two ranks, a channels=1 step a channel, 2 frames,
+  gathered over tp: within 1e-5 of the unsharded stereo step, the
+  gathered frames equal on both ranks, the post-filter launched once a
+  frame on each rank and no other kernel.
+
+Prints each rank's launch counts, its step's device ms (CUDA events; on
+tp-full each rank alone, in turns, beside the unsharded step's), the
+gathers' ms and the backend.
+
 The encode plane (BatchedPlanEncoder): its kernel pvq_search (csrc/pvq.cu,
 the greedy PVQ search of every used leaf, on a tile of 8, 16 or 32 lanes
 by its width, its pulses packed int16 in plan order) must equal its plain
@@ -315,6 +336,13 @@ L2_FLUSH_BYTES = 256 << 20
 # reference's sharded allowance (tests/test_mesh_serve.py:81,190) of the
 # unsharded ring; MULTICHIP_RUNS timed runs a path.
 MULTICHIP_TOL, MULTICHIP_RUNS, MULTICHIP_DEADLINE_S = 1e-5, 3, 300
+# The grid phase: the dry run's dp x tp layout as ranks sharing cuda:0 under
+# gloo (GRID_WORLDS: dp x tp = 1 x 2 and 2 x 2), and the full-width tp case,
+# the CELT synthesis step at the main path's shape (B stereo, lm=3, long
+# blocks, post-filter active) over 2 ranks, each a channel, TP_FRAMES frames
+# from a random decode history (seed TP_SEED), within MULTICHIP_TOL of the
+# unsharded step; each rank's step timed alone over TP_REPS launches.
+GRID_WORLDS, TP_FRAMES, TP_REPS, TP_SEED = (2, 4), 2, 50, 5
 # The library phase: a sample of the B=1024 batch, rows 0-3 and every 37th
 # row from 37 (31 streams: both ends of the batch and, 37 being prime to 3,
 # every kind of the mixed batch), and the first LIBRARY_SESSIONS of those
@@ -1907,14 +1935,9 @@ def mixed_device(dev, batches, where: str) -> None:
 
 def kernel_counters() -> dict:
     """The six kernel wrappers by kernel name; each counts its launches."""
-    from opus_tpu_torch.dsp.plc_scan import lpc_synth, pitch_track
-    from opus_tpu_torch.dsp.postfilter import postfilter
-    from opus_tpu_torch.dsp.pvq_search import pvq_search
-    from opus_tpu_torch.dsp.rotation import rot_pass
-    from opus_tpu_torch.dsp.silk_synthesis import silk_synthesis_step
+    from opus_tpu_torch.dryrun import kernel_wrappers
 
-    return {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step, "pvq_search": pvq_search}
+    return kernel_wrappers()
 
 
 def silk_inputs(fs_khz: int, chunk: int, order: int, rows: int, seed: int, dev):
@@ -2506,6 +2529,116 @@ def multichip_phase(dev, where: str, clean, mixed, paths: dict) -> dict:
                                  f"or final ranges differ")
         launches = {k: sum(r[name]["launches"][k] for r in ranks) for k in r0["launches"]}
         out[name] = {"launches": launches, "chunks": [], "rate": rate, "world": world}
+    return out
+
+
+def tp_inputs() -> tuple:
+    """The full-width tp case's inputs as numpy: the reference's example
+    planes at B stereo, lm=3 (post-filter periods 15/120/240, gains
+    0/0.1875/0.375), and a random decode history and pre-emphasis."""
+    from opus_tpu_torch.dryrun import _example_args
+    from opus_tpu_torch.dsp.synthesis import DECODE_BUFFER_SIZE, OVERLAP
+
+    rng = np.random.default_rng(TP_SEED)
+    mem = (rng.standard_normal((B, C, DECODE_BUFFER_SIZE + OVERLAP)) * 100).astype(np.float32)
+    pre = (rng.standard_normal((B, C)) * 10).astype(np.float32)
+    return _example_args(B, 3, C), (mem, pre)
+
+
+def tp_rank(rank: int, world: int, dev) -> dict:
+    """A rank of the full-width tp case: its channel of the B stereo
+    streams through a channels=1 step for TP_FRAMES frames, the counts set
+    to 0 just before and read just after, the channels joined over the tp
+    group; then each rank's step timed alone, in turns, and on rank 0 the
+    unsharded stereo step's frames and time."""
+    import torch.distributed as dist
+
+    from opus_tpu_torch.dryrun import grid_synthesis
+    from opus_tpu_torch.dsp.synthesis import make_synthesis_step
+    from opus_tpu_torch.mesh import GridSpec, grid_groups, replicas_equal
+    from opus_tpu_torch.state import synth_state_from_numpy
+
+    grid = GridSpec(B, C, 1, world, rank)
+    groups = grid_groups(1, world)
+    args, state = tp_inputs()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = grid_synthesis(grid, groups, 3, args, state, device=dev, frames=TP_FRAMES)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res = {"launches": launches, "gathered_equal": replicas_equal(out["pcm"], groups[1]),
+           "backend": dist.get_backend(), "tp_gather_ms": out["tp_gather_ms"]}
+    if rank == 0:
+        step = make_synthesis_step(3, False, C, 1, device=dev)
+        st = synth_state_from_numpy(*state, dev)
+        inputs = [torch.as_tensor(a).to(dev) for a in args]
+        whole = []
+        for _ in range(TP_FRAMES):
+            st, pcm = step(st, *inputs)
+            whole.append(pcm)
+        res["err"] = float((out["pcm"] - torch.cat(whole, dim=1)).abs().max())
+        res["shape"] = tuple(out["pcm"].shape)
+        res["finite"] = bool(torch.isfinite(out["pcm"]).all())
+    for r in range(world):  # one rank on the card at a time
+        dist.barrier()
+        if r == rank:
+            res["ms"] = cuda_ms(out["step"], TP_REPS)
+            if rank == 0:
+                res["unsharded_ms"] = cuda_ms(lambda: step(st, *inputs), TP_REPS)
+        torch.cuda.synchronize()
+    return res
+
+
+def grid_launches(ranks: list) -> dict:
+    """A path's launches, summed over its ranks (every kernel's count)."""
+    return {k: sum(r["launches"][k] for r in ranks) for k in kernel_counters()}
+
+
+def grid_phase(where: str) -> dict:
+    """The dry run's dp x tp grid and the full-width tp case, each as ranks
+    sharing cuda:0 under gloo (run_ranks' ranks_per_card; NCCL refuses two
+    ranks on one card).  Gates: every phase of the dry run (its own), the
+    post-filter and rotation launched on every rank of the grid; the tp
+    case's gathered frames within MULTICHIP_TOL of the unsharded step,
+    equal on both ranks, and the post-filter launched once a frame on each
+    rank.  Prints each rank's launches, its step's device ms, the gathers'
+    ms and the backend."""
+    from opus_tpu_torch.dryrun import dryrun_multichip
+    from opus_tpu_torch.mesh import run_ranks
+
+    out = {}
+    for world in GRID_WORLDS:
+        res = dryrun_multichip(world, device="cuda", ranks_per_card=world)
+        name = f"grid-{res['dp']}x{res['tp']}"
+        for r, rank in enumerate(res["ranks"]):
+            print(f"{name} rank {r} ({rank['device']}, {res['backend']}): kernel launches "
+                  f"{rank['launches']}, CELT step device ms (warm, the ranks at once) "
+                  f"{rank['celt_step_ms']}, tp gather "
+                  f"ms {rank['tp_gather_ms']}, dp gather ms {rank['dp_gather_ms']} ({where})",
+                  flush=True)
+            if not (rank["launches"]["postfilter"] and rank["launches"]["rotation"]):
+                raise AssertionError(f"{name} rank {r}: kernel launches {rank['launches']}")
+        out[name] = {"launches": grid_launches(res["ranks"]), "chunks": []}
+    print(f"tp-full: the synthesis step at B={B} stereo lm=3 over 2 ranks sharing cuda:0, "
+          f"{TP_FRAMES} frames ({where})", flush=True)
+    ranks = run_ranks(tp_rank, 2, device="cuda", ranks_per_card=2,
+                      deadline_s=MULTICHIP_DEADLINE_S)
+    r0 = ranks[0]
+    for r, rank in enumerate(ranks):
+        print(f"tp-full rank {r} (channel {r}, {rank['backend']}): kernel launches "
+              f"{rank['launches']}, channels=1 step device ms {rank['ms']}, tp gather ms "
+              f"{rank['tp_gather_ms']} ({where})", flush=True)
+        want = {k: TP_FRAMES if k == "postfilter" else 0 for k in rank["launches"]}
+        if rank["launches"] != want or not rank["gathered_equal"]:
+            raise AssertionError(f"tp-full rank {r}: launches {rank['launches']}, gathered "
+                                 f"frames equal on the ranks {rank['gathered_equal']}")
+    print(f"tp-full: gathered {r0['shape']} |split - unsharded| max={r0['err']}; unsharded "
+          f"stereo step device ms {r0['unsharded_ms']} ({where})", flush=True)
+    if not (r0["finite"] and r0["shape"] == (B, TP_FRAMES * 960, C)
+            and r0["err"] <= MULTICHIP_TOL):
+        raise AssertionError(f"tp-full: {r0['shape']} finite {r0['finite']}, off the unsharded "
+                             f"step by {r0['err']}")
+    out["tp-full"] = {"launches": grid_launches(ranks), "chunks": []}
     return out
 
 
@@ -3189,6 +3322,7 @@ def main() -> int:
     paths.update(timed("multichip", multichip_phase, dev, where, clean, mixed, paths))
     world = paths["multichip-plan"]["world"]
     timed("dryrun_multichip", lambda: dryrun_multichip(world, device="cuda"))
+    paths.update(timed("grid", grid_phase, where))
     timed("pvq_search phase", pvq_phase, dev, where)
     paths["encode"] = timed("encode", encode_path, dev, where)
     plan = paths["plan"]

@@ -17,6 +17,10 @@ fallbacks, the multistream frames) is assembled by the functions here
 with all_gather, only when a caller asks for it; each is a collective,
 called by every rank of the group together.
 
+Each function takes the `group` to gather over (mesh.grid_groups' dp
+group on a dp x tp grid, whose tp ranks serve the same streams), the
+whole world by default.
+
 The reference lets GSPMD split rows without regard to multistream
 sessions, so its regroup gathers the elementary streams before it
 interleaves them; here a rank owns whole sessions, un-maps them locally
@@ -33,26 +37,26 @@ from .opus_pipeline import BatchedOpusDecoder
 from .pipeline import BatchedCeltDecoder
 
 
-def gather_ring(dec: BatchedCeltDecoder | BatchedOpusDecoder) -> torch.Tensor:
+def gather_ring(dec: BatchedCeltDecoder | BatchedOpusDecoder, group=None) -> torch.Tensor:
     """The last served step's PCM of the whole batch, [B, frame, C], on
     every rank's device."""
-    return all_gather_rows(dec._serve_ring)
+    return all_gather_rows(dec._serve_ring, group)
 
 
-def gather_sessions(dec: BatchedMultistreamDecoder) -> torch.Tensor:
+def gather_sessions(dec: BatchedMultistreamDecoder, group=None) -> torch.Tensor:
     """The last served step's un-mapped frames of every session, [B,
     frame, channels], on every rank's device."""
-    return all_gather_rows(dec.unmap_on_device(dec.core._serve_ring))
+    return all_gather_rows(dec.unmap_on_device(dec.core._serve_ring), group)
 
 
-def gather_final_ranges(dec) -> list[int]:
+def gather_final_ranges(dec, group=None) -> list[int]:
     """Every stream's (or multistream session's) final range, in batch
     order."""
-    return gather_ints(dec.final_ranges())
+    return gather_ints(dec.final_ranges(), group)
 
 
-def gather_fallbacks(dec: BatchedCeltDecoder | BatchedOpusDecoder) -> list[int]:
+def gather_fallbacks(dec: BatchedCeltDecoder | BatchedOpusDecoder, group=None) -> list[int]:
     """Each rank's count of plan steps served on the packed path (a
     multistream decoder's are its `core`'s): a rank whose streams are
     dense can overflow its plan arena where the others do not."""
-    return gather_ints([dec.plan_fallbacks])
+    return gather_ints([dec.plan_fallbacks], group)

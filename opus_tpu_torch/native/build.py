@@ -13,6 +13,17 @@ opus_tpu_torch/_build/, named by a hash of the sources and the final
 flags, so an edited source rebuilds and an unchanged one loads at once.
 It is built for the machine that builds it (-march=native), so the hash
 also covers the host CPU's feature flags.
+
+The sanitizer lane builds the reference's instrumented variant
+(`build(sanitize="address,undefined")`, or this script with
+OPUS_TPU_SANITIZE set, as the reference's build.py reads it): -O1 -g
+-fno-omit-frame-pointer -fsanitize=..., without -march=native and
+-fopenmp so that the reports are clean, named libopusfe_san_<hash>.so.
+The loader (frontend.py) loads it when OPUS_TPU_NATIVE_LIB names it:
+
+    lib=$(OPUS_TPU_SANITIZE=address,undefined python opus_tpu_torch/native/build.py)
+    LD_PRELOAD=$(g++ -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \
+      OPUS_TPU_NATIVE_LIB=$lib python -m pytest tests/test_torch_native_sanitize.py
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ _FLAGS = (
     # fixed-point planes assume.
     "-std=c++20", "-shared", "-fPIC",
     "-ffp-contract=fast", "-fno-fast-math", "-fno-math-errno",
-    "-O3", "-funroll-loops",
 )
+_OPT = ("-O3", "-funroll-loops")
+_SANITIZE_OPT = ("-O1", "-g", "-fno-omit-frame-pointer")
 
 
 def _flag_works(cxx: str, flag: str) -> bool:
@@ -60,16 +72,22 @@ def _host_cpu() -> str:
         return platform.processor()
 
 
-def build() -> pathlib.Path:
+def build(sanitize: str = "") -> pathlib.Path:
     """Compile the three units unless a library for these sources, flags
-    and host CPU exists; returns its path."""
+    and host CPU exists; returns its path.  `sanitize`, a list for
+    -fsanitize= (e.g. "address,undefined"), builds the instrumented
+    variant instead."""
     cxx = os.environ.get("CXX", "g++")
-    flags = list(_FLAGS) + [f for f in ("-march=native", "-fopenmp") if _flag_works(cxx, f)]
+    if sanitize:
+        flags = [*_FLAGS, *_SANITIZE_OPT, f"-fsanitize={sanitize}"]
+    else:
+        flags = [*_FLAGS, *_OPT,
+                 *[f for f in ("-march=native", "-fopenmp") if _flag_works(cxx, f)]]
     h = hashlib.sha256(" ".join([cxx, *flags, _host_cpu()]).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((HERE / name).read_bytes())
-    so = OUT / f"libopusfe_{h.hexdigest()[:16]}.so"
+    so = OUT / f"libopusfe{'_san' if sanitize else ''}_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     OUT.mkdir(exist_ok=True)
@@ -97,4 +115,4 @@ def build() -> pathlib.Path:
 
 
 if __name__ == "__main__":
-    print(build())
+    print(build(os.environ.get("OPUS_TPU_SANITIZE", "").strip()))

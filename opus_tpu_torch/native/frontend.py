@@ -51,7 +51,13 @@ def _load():
     # OMP workers must sleep between batch calls: spin-waiting starves
     # the threads that issue the device work on the same host cores.
     os.environ.setdefault("OMP_WAIT_POLICY", "passive")
-    lib = ctypes.CDLL(str(build()))
+    # OPUS_TPU_NATIVE_LIB: a library to load instead of the build, as the
+    # reference's loader reads it: the sanitizer lane's instrumented
+    # library (build.py), under LD_PRELOAD=libasan.
+    override = os.environ.get("OPUS_TPU_NATIVE_LIB")
+    if override and not os.path.exists(override):
+        raise FileNotFoundError(f"OPUS_TPU_NATIVE_LIB={override} not found")
+    lib = ctypes.CDLL(override or str(build()))
     lib.celt_fe_create.restype = ctypes.c_void_p
     lib.celt_fe_create.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.celt_fe_destroy.argtypes = [ctypes.c_void_p]
@@ -66,6 +72,8 @@ def _load():
                                    ctypes.c_int, f64p, f32p, i32p, f64p]
     head = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, i32p, ctypes.c_int,
             ctypes.c_int, i32p]
+    lib.celt_fe_decode_batch.restype = ctypes.c_int
+    lib.celt_fe_decode_batch.argtypes = head + [f64p, ctypes.c_int64, f32p, i32p, f64p]
     lib.celt_fe_decode_batch_f32.restype = ctypes.c_int
     lib.celt_fe_decode_batch_f32.argtypes = head + [f32p, ctypes.c_int64, f32p, i32p, f32p]
     lib.celt_fe_decode_batch_q15.restype = ctypes.c_int
@@ -281,6 +289,10 @@ class NativeBatchFrontEnd:
         except (AttributeError, TypeError):
             pass
 
+    def reset(self):
+        for h in self.handles:
+            self.lib.celt_fe_reset(h)
+
     def final_ranges(self) -> list:
         return [int(self.lib.celt_fe_rng(h)) for h in self.handles]
 
@@ -302,6 +314,22 @@ class NativeBatchFrontEnd:
     def _check(self, rc: int) -> None:
         if rc != self.batch:
             raise ValueError(f"native batch decode failed at stream {-rc - 1}")
+
+    def decode_batch(self, packets: list, frame_size: int):
+        """(x [B, 1920] f64, ble [B,2,21] f32, meta [B,16] i32, gains [B,3]
+        f64): the planes at full precision, in new arrays."""
+        blob, lens, sch, n48 = self._inputs(packets, frame_size, None)
+        B = self.batch
+        x = np.zeros((B, 2 * 960), np.float64)
+        ble = np.zeros((B, 2, self.NB), np.float32)
+        meta = np.zeros((B, 16), np.int32)
+        gains = np.zeros((B, 3), np.float64)
+        self._check(self.lib.celt_fe_decode_batch(
+            self.handles, blob, _ptr(lens, ctypes.c_int32), B, n48,
+            _ptr(sch, ctypes.c_int32), _ptr(x, ctypes.c_double), x.shape[1],
+            _ptr(ble, ctypes.c_float), _ptr(meta, ctypes.c_int32),
+            _ptr(gains, ctypes.c_double)))
+        return x, ble, meta, gains
 
     def decode_batch_f32(self, packets: list, frame_size: int, stream_channels=None):
         """(x [B, 1920] f32, ble [B,2,21], meta [B,16], gains [B,3] f32):
@@ -327,6 +355,33 @@ class NativeBatchFrontEnd:
             _ptr(ble, ctypes.c_float), _ptr(meta, ctypes.c_int32),
             _ptr(gains, ctypes.c_float)))
         return xq, ble, meta, gains
+
+    def alloc_packed_slots(self, n_slots: int = 4, mode: str = "q14") -> list:
+        """n_slots packed slots over fresh int32 buffers, laid out as
+        dsp.tables.packed_offsets (xq: Q14 int16 or pW words, ble, meta,
+        gains; the reference's words): decode_batch_q15_into writes the
+        regions, numpy views of `buf`, and the whole buffer is one upload."""
+        from ..dsp.tables import XQ_WORDS, packed_offsets
+
+        B = self.batch
+        off = packed_offsets(B, mode)
+        slots = []
+        for _ in range(n_slots):
+            buf = np.zeros(off["end"], np.int32)
+            xq = buf[: off["ble"]]
+            slots.append(dict(
+                buf=buf, mode=mode,
+                xq=xq.view(np.int16).reshape(B, 1920) if mode == "q14"
+                else xq.reshape(B, XQ_WORDS[mode]),
+                ble=buf[off["ble"] : off["meta"]].view(np.float32).reshape(B, 2, self.NB),
+                meta=buf[off["meta"] : off["gains"]].reshape(B, 16),
+                gains=buf[off["gains"] :].view(np.float32).reshape(B, 3)))
+        return slots
+
+    def alloc_plan_slots(self, n_slots: int = 4,
+                         arena_words_per_stream: int = PLAN_ARENA_WORDS) -> list:
+        """n_slots plan slots of this batch (alloc_plan_slots)."""
+        return alloc_plan_slots(self.batch, n_slots, arena_words_per_stream)
 
     def decode_batch_q15_into(self, packets: list, frame_size: int, slot: dict,
                               stream_channels=None):

@@ -36,7 +36,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = ["types.py", "packet.py", "softclip.py", "rc/trace.py", "silk/stereo.py", "silk/plc.py",
           "silk/api.py", "decoder.py", "conformance.py", "repacketizer.py", "ogg.py",
           "silk/encoder.py", "silk/stereo_encoder.py", "encoder.py", "multistream.py",
-          "__main__.py"]
+          "__main__.py", "oracle.py"]
 
 needs_libopus = pytest.mark.skipif(not oracle.available(), reason="libopus not present")
 

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from opus_tpu_torch.mesh import ShardSpec, init_ranks, run_ranks
+from opus_tpu_torch.mesh import GridSpec, ShardSpec, card_backend, init_ranks, run_ranks
 
 F = 960
 PCM_TOL = 1e-5  # sharded vs unsharded, and the port vs the JAX mesh step
@@ -133,6 +133,18 @@ def _rank_report(rank: int, world: int, dev) -> tuple:
 
     rows = all_gather_rows(torch.full((2, 3), float(rank)))
     return rank, str(dev), torch.get_num_threads(), rows.numpy(), gather_ints([rank] * rank)
+
+
+def _rank_grid(rank: int, world: int, dev) -> tuple:
+    """A 2 x 2 grid's gathers of a [2, 3, 1] block filled with the rank."""
+    from opus_tpu_torch.mesh import (all_gather_channels, all_gather_rows, gather_ints,
+                                     grid_groups, replicas_equal)
+
+    dp_group, tp_group = grid_groups(2, 2)
+    t = torch.full((2, 3, 1), float(rank))
+    return (all_gather_channels(t, tp_group).numpy(), all_gather_rows(t, dp_group).numpy(),
+            gather_ints([rank], dp_group), replicas_equal(t, tp_group),
+            replicas_equal(torch.zeros(2), tp_group))
 
 
 # --- traffic and references (the parent: libopus and the reference) --------
@@ -343,6 +355,123 @@ def test_shard_spec_matches_dp_placement(batch, world):
         rows = range(batch)[placed[d][0]]
         assert (spec.start, spec.stop) == (rows.start, rows.stop)
         assert spec.rows(list(range(batch))) == list(rows)
+
+
+@pytest.mark.parametrize("dp, tp", [(1, 2), (2, 2), (4, 2)])
+@pytest.mark.parametrize("batch", [8, 16])
+def test_grid_spec_matches_dp_tp_placement(batch, dp, tp):
+    """A rank's block is the one JAX places on device `rank` of
+    Mesh(devices.reshape(dp, tp)) under NamedSharding(mesh, P("dp", "tp",
+    None)) (__graft_entry__.py:182,193): rows, channels and the last axis
+    whole, for every rank of the grid."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    channels, width = 2, 5
+    devices = np.array(jax.devices("cpu")[: dp * tp]).reshape(dp, tp)
+    placed = NamedSharding(Mesh(devices, ("dp", "tp")), P("dp", "tp", None)).devices_indices_map(
+        (batch, channels, width))
+    whole = np.arange(batch * channels * width).reshape(batch, channels, width)
+    for rank, d in enumerate(devices.flat):
+        grid = GridSpec(batch, channels, dp, tp, rank)
+        assert grid.coords == divmod(rank, tp)
+        assert np.array_equal(grid.block(whole), whole[placed[d]])
+        assert np.array_equal(grid.block(torch.as_tensor(whole)).numpy(), whole[placed[d]])
+        rows = range(batch)[placed[d][0]]
+        assert grid.dp_spec.rows(list(range(batch))) == list(rows)
+
+
+def test_grid_spec_rejects_uneven_and_foreign_blocks():
+    with pytest.raises(ValueError, match="evenly over dp"):
+        GridSpec(10, 2, 4, 2, 0)
+    with pytest.raises(ValueError, match="evenly over tp"):
+        GridSpec(8, 3, 2, 2, 0)
+    with pytest.raises(ValueError, match="not in a grid"):
+        GridSpec(8, 2, 2, 2, 4)
+    with pytest.raises(ValueError, match="is not"):
+        GridSpec(8, 2, 2, 2, 1).block(np.zeros((8, 1, 4)))
+
+
+def test_ranks_share_a_card_only_when_asked():
+    """NCCL with one rank a card; gloo when the caller puts several ranks
+    on one card; gloo on the CPU, where ranks_per_card must be 1."""
+    assert card_backend("cuda", 1) == "nccl"
+    assert card_backend("cuda", 2) == card_backend("cuda", 4) == "gloo"
+    assert card_backend("cpu", 1) == "gloo"
+    for device, k in (("cpu", 2), ("cuda", 0)):
+        with pytest.raises(ValueError, match="ranks a card"):
+            card_backend(device, k)
+    with pytest.raises(ValueError, match="ranks a card"):
+        run_ranks(_rank_report, 2, device="cpu", ranks_per_card=2)
+
+
+def test_grid_groups_gather_in_grid_order():
+    """On a 2 x 2 grid of gloo ranks the tp group joins channels in t order
+    and the dp group rows in d order; replicas_equal tells replicas from
+    different blocks."""
+    out = run_ranks(_rank_grid, 4, device="cpu", deadline_s=120)
+    for rank, (channels, rows, ints, differ, same) in enumerate(out):
+        d, t = divmod(rank, 2)
+        np.testing.assert_array_equal(channels[0, 0], [2 * d, 2 * d + 1])
+        np.testing.assert_array_equal(rows[:, 0, 0], [t, t, t + 2, t + 2])
+        assert ints == [t, t + 2] and not differ and same
+
+
+def test_uncounted_restores_every_launch_count():
+    """The dry run's unsharded references and timing repeats run inside
+    `uncounted`: the launch counts read after the block are those before
+    it, for every kernel wrapper, also when the block raises."""
+    from opus_tpu_torch.dryrun import kernel_wrappers, uncounted
+
+    counters = kernel_wrappers()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    try:
+        for i, fn in enumerate(counters.values()):
+            fn.launches = i
+        with pytest.raises(RuntimeError), uncounted():
+            for fn in counters.values():
+                fn.launches += 7
+            raise RuntimeError
+        assert [fn.launches for fn in counters.values()] == list(range(len(counters)))
+        assert set(counters) == {"postfilter", "rotation", "pitch_track", "lpc_synth",
+                                 "silk_synth", "pvq_search"}
+    finally:
+        for k, fn in counters.items():
+            fn.launches = saved[k]
+
+
+@pytest.mark.parametrize("lm", [0, 3])
+def test_channel_split_synthesis_matches_jax_stereo(lm):
+    """The tp split of the CELT synthesis step with no ranks: two
+    channels=1 steps of the port, one a channel, interleaved, within 1e-5
+    of the JAX stereo make_synthesis_step on the same seeded inputs (B=8,
+    long blocks, post-filter active, a random decode history)."""
+    import jax.numpy as jnp
+
+    from opus_tpu.dsp import synthesis as S
+    from opus_tpu_torch.dryrun import _example_args
+    from opus_tpu_torch.dsp.synthesis import DECODE_BUFFER_SIZE, OVERLAP, make_synthesis_step
+    from opus_tpu_torch.state import synth_state_from_numpy
+
+    batch = 8
+    args = _example_args(batch, lm, 2)
+    rng = np.random.default_rng(5)
+    mem = (rng.standard_normal((batch, 2, DECODE_BUFFER_SIZE + OVERLAP)) * 100).astype(np.float32)
+    pre = (rng.standard_normal((batch, 2)) * 10).astype(np.float32)
+    step = make_synthesis_step(lm, False, 1, 1, device="cpu")
+    halves = []
+    for c in range(2):
+        st = synth_state_from_numpy(mem[:, c : c + 1], pre[:, c : c + 1], "cpu")
+        x, loge, *rest = args
+        halves.append(step(st, torch.as_tensor(x[:, c : c + 1]),
+                           torch.as_tensor(loge[:, c : c + 1]),
+                           *map(torch.as_tensor, rest))[1].numpy())
+    got = np.concatenate(halves, axis=-1)
+    jstep = S.make_synthesis_step(lm, False, 2, 1)
+    want = np.asarray(jstep(S.SynthState(jnp.asarray(mem), jnp.asarray(pre)),
+                            *map(jnp.asarray, args))[1])
+    assert got.shape == want.shape == (batch, 120 << lm, 2)
+    assert float(np.abs(got - want).max()) < PCM_TOL
 
 
 def test_shard_spec_rejects_uneven_and_foreign_rows():
@@ -576,16 +705,25 @@ def test_plan_overflow_gate(decoder, traffic):
 @pytest.mark.parametrize("world", WORLDS)
 def test_torch_dryrun_multichip(world, traffic):
     """tests/test_mesh_serve.py:201 and tests/test_dsp.py:90: the port's
-    dry run passes its own gates over `world` gloo ranks, and every stream
-    of its mixed phase has its tail (from sample 240 on) within 2e-3 of
-    the JAX scalar Decoder."""
+    dry run lays `world` gloo ranks out as the reference's mesh (dp=1 x
+    tp=2 at 2, dp=2 x tp=2 at 4) with the reference's shapes (a CELT batch
+    of 8 dp, a rank's block [8, 120, 1], regrouped frames (2 dp, 120, 8)),
+    passes its own gates, and every stream of its mixed phase has its
+    tail (from sample 240 on) within 2e-3 of the JAX scalar Decoder."""
     from opus_tpu_torch.dryrun import dryrun_multichip
 
     out = dryrun_multichip(world, device="cpu")
-    assert out["world"] == world
-    assert out["synthetic"]["regrouped_shape"] == (2 * world, 120, 8)
+    dp = world // 2
+    assert (out["world"], out["dp"], out["tp"], out["backend"]) == (world, dp, 2, "gloo")
+    syn = out["synthetic"]
+    assert syn["celt_batch"] == 8 * dp and syn["pcm_shape"] == (8 * dp, 120, 2)
+    assert syn["local_pcm_shape"] == (8, 120, 1)
+    assert syn["regrouped_shape"] == (2 * dp, 120, 8)
+    assert syn["silk_rows"] == 2 * dp
+    assert len(out["ranks"]) == world
     mixed = out["mixed"]
-    assert mixed["plan_fallbacks"] == [0] * world
+    assert mixed["streams"] == 4 * dp
+    assert mixed["plan_fallbacks"] == [0] * dp
     refs = _scalar(mixed["steps"], traffic["scalar_cache"])
     for b, ref in enumerate(refs):
         for f, ring in enumerate(mixed["rings"]):
@@ -638,3 +776,22 @@ def test_sharded_plan_on_card():
                                atol=PCM_TOL)
     assert out["ranges"] == whole.final_ranges()
     assert out["fallbacks"] == [0] * world and whole.plan_fallbacks == 0
+
+
+@pytest.mark.cuda
+def test_grid_dryrun_on_one_card():
+    """The dry run's dp=1 x tp=2 grid as two gloo ranks sharing cuda:0:
+    every gate of its phases, the reference's shapes, the post-filter and
+    rotation kernels launched on both ranks, a warm step timed on each."""
+    from opus_tpu_torch.dryrun import dryrun_multichip
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ranks share cuda:0")
+
+    out = dryrun_multichip(2, device="cuda", ranks_per_card=2)
+    assert (out["dp"], out["tp"], out["backend"]) == (1, 2, "gloo")
+    assert out["synthetic"]["regrouped_shape"] == (2, 120, 8)
+    for rank in out["ranks"]:
+        assert rank["device"] == "cuda:0"
+        assert rank["launches"]["postfilter"] > 0 and rank["launches"]["rotation"] > 0
+        assert rank["celt_step_ms"] > 0

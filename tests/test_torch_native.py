@@ -60,10 +60,10 @@ def test_plane_a_fills_slots_like_the_reference(mode):
     port = port_fe.NativeBatchFrontEnd(B, 2)
     if mode == "plan":
         want_slot = ref.alloc_plan_slots(1)[0]
-        got_slot = port_fe.alloc_plan_slots(B, 1)[0]
+        got_slot = port.alloc_plan_slots(1)[0]
     else:
         want_slot = ref.alloc_packed_slots(1, mode)[0]
-        got_slot = ref.alloc_packed_slots(1, mode)[0]
+        got_slot = port.alloc_packed_slots(1, mode)[0]
     for packets in batches:
         if mode == "plan":
             want = ref.decode_batch_plan_into(packets, FRAME, want_slot, want_xdbg=True)
@@ -92,6 +92,49 @@ def test_f32_and_q15_planes_match_the_reference():
             for a, b in zip(got, want):
                 assert np.array_equal(a, b), name
     assert port.final_ranges() == ref.final_ranges()
+
+
+@pytest.mark.parametrize("mode", ["q14", "p12", "p10", "p8"])
+def test_batch_front_end_methods_match_the_reference(mode):
+    """reset, decode_batch (the f64 planes), alloc_packed_slots and
+    alloc_plan_slots of the port's NativeBatchFrontEnd against the
+    reference wrapper's on the same packets (a loss on stream 1): the
+    planes and every slot word equal, slots of the same layout (region
+    offsets into `buf`), and a reset returning both to a fresh decoder's
+    final ranges and planes."""
+    B, NF = 3, 4
+    batches = _lose(_payloads(B, NF, seed=13), {(1, 1)})
+    ref = ref_fe.NativeBatchFrontEnd(B, 2)
+    port = port_fe.NativeBatchFrontEnd(B, 2)
+    want_slots, got_slots = ref.alloc_packed_slots(2, mode), port.alloc_packed_slots(2, mode)
+    want_plan, got_plan = ref.alloc_plan_slots(1, 384)[0], port.alloc_plan_slots(1, 384)[0]
+    assert len(got_slots) == len(want_slots) == 2
+    views = 0
+    for got, want in zip(got_slots + [got_plan], want_slots + [want_plan]):
+        assert got.keys() >= want.keys()
+        assert got["buf"].dtype == want["buf"].dtype and got["buf"].shape == want["buf"].shape
+        for key, arr in want.items():
+            if (key != "buf" and isinstance(arr, np.ndarray)
+                    and np.shares_memory(arr, want["buf"])):
+                views += 1
+                off = arr.__array_interface__["data"][0] - want["buf"].ctypes.data
+                assert got[key].__array_interface__["data"][0] - got["buf"].ctypes.data == off
+                assert got[key].shape == arr.shape and got[key].dtype == arr.dtype, key
+    assert views == 2 * 4 + 6  # xq, ble, meta, gains; the plan slot's six regions
+    for f, packets in enumerate(batches):
+        for got, want in zip(port.decode_batch(packets, FRAME), ref.decode_batch(packets, FRAME)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        port.decode_batch_q15_into(packets, FRAME, got_slots[f % 2])
+        ref.decode_batch_q15_into(packets, FRAME, want_slots[f % 2])
+        assert np.array_equal(got_slots[f % 2]["buf"], want_slots[f % 2]["buf"])
+        assert port.final_ranges() == ref.final_ranges()
+    for fe in (port, ref):
+        fe.reset()
+        fe.decode_batch_plan_into(batches[0], FRAME, got_plan if fe is port else want_plan)
+    assert np.array_equal(got_plan["buf"], want_plan["buf"])
+    fresh = port_fe.NativeBatchFrontEnd(B, 2)
+    fresh.decode_batch_plan_into(batches[0], FRAME, port_fe.alloc_plan_slots(B, 1, 384)[0])
+    assert port.final_ranges() == ref.final_ranges() == fresh.final_ranges()
 
 
 def test_encoder_batch_matches_the_reference():

@@ -4,16 +4,20 @@ Plane A (the port's copy of the native engine) decodes libopus CELT
 payloads into plan slots; the port's executor must agree with the jitted
 JAX `make_plan_executor` on the same inputs within 1e-5 (float
 reassociation between XLA and torch, against an observed ~4e-7), and
-with the numpy oracle `execute_plan_numpy` and the engine's own f32
-spectra within 1e-3 (the reference's gate, tests/test_native.py: leaf
-gains travel as f16).  One jitted JAX executor is shared by the module.
+with the port's numpy oracle `execute_plan_numpy` (dsp/plan_tables.py)
+and the engine's own f32 spectra within 1e-3 (the reference's gate,
+tests/test_native.py: leaf gains travel as f16).  The port's numpy oracle
+is a copy of the reference's (syntax trees equal) and gives the same
+leaves, pulses and spectra as the reference's on recorded plan slots.
+One jitted JAX executor is shared by the module.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from opus_tpu import oracle, parse_packet
+from opus_tpu_torch import oracle, parse_packet
+from opus_tpu_torch.dsp.plan_tables import execute_plan_numpy, plan_executor_args
 from opus_tpu_torch.native.frontend import NativeBatchFrontEnd, alloc_plan_slots
 
 pytestmark = pytest.mark.skipif(not oracle.available(), reason="libopus not present")
@@ -53,8 +57,6 @@ def _decorrelated_streams(nframes):
 
 
 def _args(slot):
-    from opus_tpu.dsp.plan_exec import plan_executor_args
-
     return plan_executor_args(slot)
 
 
@@ -80,8 +82,6 @@ def _run_port(ex, slot):
 
 def _check_frame(slot, got, jax_executor):
     import jax.numpy as jnp
-
-    from opus_tpu.dsp.plan_exec import execute_plan_numpy
 
     want = np.asarray(jax_executor(*map(jnp.asarray, _args(slot))))
     assert got.shape == want.shape == (B, 2, F)
@@ -234,7 +234,6 @@ def test_executor_hybrid_and_narrowband_plans(jax_executor, port_executor):
     and narrowband CELT (end band 13), with a loss on each hybrid stream: the
     port's executor equals the JAX executor within 1e-5 and the numpy
     oracle within 1e-3."""
-    from opus_tpu.dsp.plan_exec import execute_plan_numpy
     from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
 
     import jax.numpy as jnp
@@ -259,3 +258,86 @@ def test_executor_hybrid_and_narrowband_plans(jax_executor, port_executor):
             c_ = int(slot["meta"][b, 3])
             assert float(np.abs(got[b, :c_] - xn[b, :c_]).max()) < REF_TOL
     assert 17 in starts and 0 in starts and 13 in ends
+
+
+ORACLE_COPIES = ["_exp_rotation1", "rotate_leaf", "parse_leaves", "unpack_iy",
+                 "execute_plan_numpy", "plan_executor_args"]
+
+
+def test_numpy_oracle_is_the_reference_code():
+    """Each function of the port's numpy oracle has the syntax tree of the
+    reference's function of that name, and the leaf-type constants agree."""
+    import ast
+    import pathlib
+
+    from opus_tpu.dsp import plan_exec as R
+    from opus_tpu_torch.dsp import plan_tables as PT
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+
+    def functions(rel):
+        tree = ast.parse((root / rel).read_text())
+        return {n.name: ast.dump(n) for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    port = functions("opus_tpu_torch/dsp/plan_tables.py")
+    ref = functions("opus_tpu/dsp/plan_exec.py")
+    for name in ORACLE_COPIES:
+        assert port[name] == ref[name], name
+    assert (PT.LEAF_PVQ, PT.LEAF_FOLD, PT.LEAF_NOISE) == (R.LEAF_PVQ, R.LEAF_FOLD, R.LEAF_NOISE)
+
+
+@pytest.mark.parametrize("streams", ["tonal", "decorrelated", "mixed"])
+def test_numpy_oracle_equals_reference(streams):
+    """On recorded plan slots (CELT stereo at six rates with a loss run,
+    and the mixed decode's hybrid and narrowband plans with losses), the
+    port's parse_leaves, unpack_iy, rotate_leaf, plan_executor_args and
+    execute_plan_numpy give the reference's leaves, pulses, rotated leaves,
+    executor inputs and spectra exactly."""
+    from opus_tpu.dsp import plan_exec as R
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
+    from opus_tpu_torch.celt import modes
+    from opus_tpu_torch.dsp import plan_tables as PT
+
+    nf = 4
+    if streams == "mixed":
+        src = _mixed_streams(nf)
+        dec = BatchedOpusDecoder(B, 2, transfer="plan", device="cpu")
+        slot = dec._alloc_plan_slots(F, 1)[0][0]
+    else:
+        src = (_tonal_streams if streams == "tonal" else _decorrelated_streams)(nf)
+        fe = NativeBatchFrontEnd(B, 2)
+        slot = alloc_plan_slots(B, 1)[0]
+    n_total = F
+    e = modes.E_BANDS.astype(np.int64) * 8
+    leaves = 0
+    for fr in range(nf):
+        pkts = [src[b][fr] for b in range(B)]
+        if fr == 2:
+            pkts[1] = None
+        if streams == "mixed":
+            dec._plane_a_plan(pkts, slot)
+        else:
+            fe.decode_batch_plan_into(pkts, F, slot)
+        for got, want in zip(PT.plan_executor_args(slot), R.plan_executor_args(slot)):
+            assert np.array_equal(got, want)
+        assert np.array_equal(PT.execute_plan_numpy(slot, 3), R.execute_plan_numpy(slot, 3))
+        for b in range(B):
+            mt = slot["meta"][b]
+            e_s = int(e[17]) if int(mt[4]) == 17 else 0
+            e_e = int(e[min(max(int(mt[5]), 0), 21)])
+            args = (slot["arena"], slot["header"][b], n_total, e_s, e_e)
+            lp, lr = PT.parse_leaves(*args), R.parse_leaves(*args)
+            assert lp.keys() == lr.keys()
+            for k in lp:
+                assert np.array_equal(lp[k], lr[k]), k
+            for li, (ip, ir) in enumerate(zip(PT.unpack_iy(lp), R.unpack_iy(lr))):
+                assert (ip is None) == (ir is None) and (ip is None or np.array_equal(ip, ir))
+                if ip is None or not ip.any():
+                    continue
+                n, k = int(lp["n"][li]), int(np.abs(ip).sum())
+                xp, xr = ip.astype(np.float64), ir.astype(np.float64)
+                PT.rotate_leaf(xp, n, k, int(mt[13]), int(lp["bq"][li]))
+                R.rotate_leaf(xr, n, k, int(mt[13]), int(lr["bq"][li]))
+                assert np.array_equal(xp, xr)
+                leaves += 1
+    assert leaves > 0
