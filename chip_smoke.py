@@ -197,6 +197,16 @@ alone), then:
   as the encode step leaves them and with the L2 flushed first, CUDA-graph
   replay, plain) with its bound on the bytes the work needs.
 
+bench: the port's benchmark (opus_tpu_torch/bench.py, the port of the
+reference's bench.py) at its smoke shapes, `bench.main(["--smoke"])` on
+the card (B=32, 4 steps, 4 multistream sessions, device-plane scaling at
+64 and 128 streams), with the launch counts set to 0 just before and read
+just after.  Its one JSON line is printed; it must hold every key of the
+reference's result (bench.REFERENCE_KEYS) with each rate above 0 (the
+libopus rows null only where libopus is absent), every serving row's runs,
+median and spread, no plan fallback, every row's peak device memory above
+0, and the post-filter and the rotation launched.
+
 library: the codec library (the port's scalar Decoder, MultistreamDecoder,
 Encoder, Ogg Opus and the CLI) on the card's host, after the multistream
 paths.  The plan, plan-loss, mixed and mixed-loss runs above also keep 31
@@ -372,11 +382,9 @@ ENCODE_KINDS = [("music mono", "music", 1, 64000, {}),
 
 def card() -> str:
     """`name, power limit` of GPU 0 as nvidia-smi reports it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
+    from opus_tpu_torch.bench import card as of
+
+    return of(torch.device("cuda", 0))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1933,6 +1941,43 @@ def mixed_device(dev, batches, where: str) -> None:
           f"{B * FRAME / 48000.0 / (replay / 1e3)} ({where})")
 
 
+def bench_phase(where: str) -> dict:
+    """The port's benchmark at its smoke shapes on the card, counted as a
+    path: bench.main(["--smoke"]) with the launch counts set to 0 just
+    before and read just after; its line printed and checked."""
+    import contextlib
+    import io
+
+    from opus_tpu_torch import bench
+
+    counters = kernel_counters()
+    out = io.StringIO()
+    for fn in counters.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--smoke"])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    lines = out.getvalue().strip().splitlines()
+    print(f"bench --smoke line: {lines[-1] if lines else None}")
+    print(f"bench --smoke: exit {rc}, kernel launches {launches} ({where})")
+    line = json.loads(lines[-1])
+    bad = [k for k in bench.REFERENCE_KEYS if k not in line
+           or (line[k] is None and not (line["libopus"] == "absent" and k in bench.LIBOPUS_KEYS))
+           or (isinstance(line[k], (int, float)) and not line[k] > 0)]
+    fallbacks = {k: line[k] for k in ("plan_fallbacks", "mixed_plan_fallbacks",
+                                      "multistream_plan_fallbacks", "loss_plan_fallbacks")}
+    runs = [line[f"{p}serve_runs_s"] for p in ("", "mixed_", "multistream_", "loss_")]
+    if (rc != 0 or len(lines) != 1 or bad or any(fallbacks.values())
+            or line["serve_transfer_mode"] not in ("plan", "p10")
+            or not all(r and min(r) > 0 for r in runs)
+            or not all(v and v > 0 for v in line["peak_memory_bytes"].values())
+            or not (launches["postfilter"] and launches["rotation"])):
+        raise AssertionError(f"bench --smoke: exit {rc}, {len(lines)} lines, keys missing, "
+                             f"null or not above 0 {bad}, fallbacks {fallbacks}, launches "
+                             f"{launches}")
+    return {"launches": launches, "chunks": []}
+
+
 def kernel_counters() -> dict:
     """The six kernel wrappers by kernel name; each counts its launches."""
     from opus_tpu_torch.dryrun import kernel_wrappers
@@ -3325,6 +3370,7 @@ def main() -> int:
     paths.update(timed("grid", grid_phase, where))
     timed("pvq_search phase", pvq_phase, dev, where)
     paths["encode"] = timed("encode", encode_path, dev, where)
+    paths["bench"] = timed("bench", bench_phase, where)
     plan = paths["plan"]
 
     rate_p10 = timed("rate p10", serve_rate, dev, "p10", lossy, where)

@@ -66,7 +66,7 @@ def test_library_imports_neither_jax_nor_the_reference():
     """The public modules load in a fresh interpreter without jax or opus_tpu,
     and the package exports the reference's public names."""
     code = ("import sys, opus_tpu_torch, opus_tpu_torch.encoder, opus_tpu_torch.multistream, "
-            "opus_tpu_torch.__main__\n"
+            "opus_tpu_torch.__main__, opus_tpu_torch.bench\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'opus_tpu')))\n"
             "print(sorted(opus_tpu_torch.__all__))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

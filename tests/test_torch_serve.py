@@ -334,7 +334,8 @@ def test_port_imports_no_jax():
         "       'opus_tpu_torch.dsp.encode_exec', 'opus_tpu_torch.dsp.pvq_search',\n"
         "       'opus_tpu_torch.batch.encode_pipeline', 'opus_tpu_torch.mesh',\n"
         "       'opus_tpu_torch.batch.sharded', 'opus_tpu_torch.dryrun',\n"
-        "       'opus_tpu_torch.dsp.graphs', 'opus_tpu_torch.oracle'}\n"
+        "       'opus_tpu_torch.dsp.graphs', 'opus_tpu_torch.oracle',\n"
+        "       'opus_tpu_torch.bench'}\n"
         "assert new <= set(names), new - set(names)\n"
     )
     import pathlib
