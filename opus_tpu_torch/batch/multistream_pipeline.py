@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..packet import parse_packet
 from .opus_pipeline import BatchedOpusDecoder
 from .pipeline import BatchedCeltDecoder
@@ -146,25 +147,29 @@ class BatchedMultistreamDecoder:
         (B*S)-stream batch through the core's serve() (one upload and one
         serving step per frame).  Multi-frame packets become successive
         serving steps.  Returns the final step's un-mapped pcm [batch,
-        frame_size, channels]."""
+        frame_size, channels].  The tracer's spans: `split` (the packets
+        into elementary payloads), the core's serve() tree, `unmap` (the
+        gather and its fetch)."""
         schs = None
         elem_steps = []
         full_steps = []
-        for packets in batches:
-            nf, per_session = self._split_batch(packets)
-            for f in range(nf):
-                payloads, sch, fulls = self._step_payloads(per_session, f)
-                if self.mode == "opus":
-                    full_steps.append(fulls)
-                else:
-                    elem_steps.append(payloads)
-                    if schs is None:
-                        schs = np.array(sch, np.int32)
+        with trace.span("split", step=self.core.steps_served):
+            for packets in batches:
+                nf, per_session = self._split_batch(packets)
+                for f in range(nf):
+                    payloads, sch, fulls = self._step_payloads(per_session, f)
+                    if self.mode == "opus":
+                        full_steps.append(fulls)
+                    else:
+                        elem_steps.append(payloads)
+                        if schs is None:
+                            schs = np.array(sch, np.int32)
         if self.mode == "opus":
             self.core.serve(full_steps)
         else:
             self.core.serve(elem_steps, frame_size, stream_channels=schs)
-        return self.unmap_on_device(self.core._serve_ring).cpu().numpy()
+        with trace.span("unmap", step=self.core.steps_served - 1):
+            return self.unmap_on_device(self.core._serve_ring).cpu().numpy()
 
     def final_ranges(self) -> list[int]:
         """Per-session XOR of elementary final ranges (opus multistream)."""

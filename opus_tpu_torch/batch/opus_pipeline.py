@@ -29,7 +29,8 @@ stream (_collect_corrections, celt/decoder.py), and the windowed
 crossfades land on the device ring after the step (dsp/transitions.py).
 The one approximation left is the reference's: the first <=5 ms of a
 switch into CELT whose transition depends on the CELT decode memory on
-the device.
+the device.  The serve loops open the tracer's spans as batch/pipeline.py
+lays them out.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import packet as pkt_mod
+from .. import trace
 from ..celt import modes
 from ..celt.decoder import CeltDecoder
 from ..dsp.synthesis import (
@@ -203,6 +205,7 @@ class BatchedOpusDecoder(ServingSlots):
                 sh.end_band = CELT_END_BAND[int(bws[i])]
                 sh.stream_channels = int(schs[i])
                 try:
+                    trace.count("shadow_decodes")
                     pcm = np.asarray(sh.decode(red, 240), np.float32)
                 except Exception:  # noqa: BLE001
                     # The reference's boundary: an undecodable block leaves
@@ -219,22 +222,29 @@ class BatchedOpusDecoder(ServingSlots):
         return corrs
 
     def _plane_a_packed(self, packets: list, slot: dict) -> list:
-        frame48, toc = self._toc_arrays(packets)
+        with trace.span("toc"):
+            frame48, toc = self._toc_arrays(packets)
         if frame48 != slot["frame48"]:
             raise ValueError("frame duration changed mid-serve")
-        rcs = self.native.decode_batch_packed_into(toc, slot, PACK_BITS[slot["mode"]])
-        return self._collect_corrections(packets, rcs, toc)
+        with trace.span("plane_a"):
+            rcs = self.native.decode_batch_packed_into(toc, slot, PACK_BITS[slot["mode"]])
+        with trace.span("corrections"):
+            return self._collect_corrections(packets, rcs, toc)
 
     def _plane_a_plan(self, packets: list, slot: dict) -> list:
         """Plan-mode decode into a mixed plan slot, the SILK rows compacted.
         Raises OverflowError when the arena or a plan capacity overflows
         (the serve loop decodes the step on the packed path instead)."""
-        frame48, toc = self._toc_arrays(packets)
+        with trace.span("toc"):
+            frame48, toc = self._toc_arrays(packets)
         if frame48 != slot["frame48"]:
             raise ValueError("frame duration changed mid-serve")
-        rcs = self.native.decode_batch_plan_into(toc, slot)
-        compact_plan_silk(slot, self._silk_shape(frame48)[0])
-        return self._collect_corrections(packets, rcs, toc)
+        with trace.span("plane_a"):
+            rcs = self.native.decode_batch_plan_into(toc, slot)
+        with trace.span("silk_pack"):
+            compact_plan_silk(slot, self._silk_shape(frame48)[0])
+        with trace.span("corrections"):
+            return self._collect_corrections(packets, rcs, toc)
 
     def _silk_shape(self, frame48: int) -> tuple[int, int]:
         """(int16 samples, int32 words) of a stream's SILK region."""
@@ -390,13 +400,15 @@ class BatchedOpusDecoder(ServingSlots):
         then the transition crossfades on the ring."""
         self._reuse(slot)
         corrs = self._plane_a_packed(packets, slot)
-        lm, chunk, active, with_plc = self._step_picks(slot)
-        self._upload(slot, dev_buf, dev_buf.shape[0])
-        slot["upload_words"] = dev_buf.shape[0]
-        plc = self._serve_plc_state(self.channels) if with_plc else ()
-        step = self._mixed_serving_step(lm, chunk, active, with_plc)
-        _, _, digest = step(state, ring, dev_buf, *plc)
-        apply_corrections(ring, corrs, slot["frame48"])
+        with trace.span("issue"):
+            lm, chunk, active, with_plc = self._step_picks(slot)
+            self._upload(slot, dev_buf, dev_buf.shape[0])
+            slot["upload_words"] = dev_buf.shape[0]
+            plc = self._serve_plc_state(self.channels) if with_plc else ()
+            step = self._mixed_serving_step(lm, chunk, active, with_plc)
+            _, _, digest = self._call_step(step, state, ring, dev_buf, *plc)
+        with trace.span("crossfade"):
+            apply_corrections(ring, corrs, slot["frame48"])
         return digest
 
     def serve(self, batches: list, n_slots: int = 4) -> np.ndarray:
@@ -411,6 +423,10 @@ class BatchedOpusDecoder(ServingSlots):
 
         Returns the final step's digest (np[2]); the last frame's PCM stays
         on the device in `self._serve_ring` [B, frame48, C]."""
+        with trace.span("serve_call", step=self.steps_served):
+            return self._serve(batches, n_slots)
+
+    def _serve(self, batches: list, n_slots: int) -> np.ndarray:
         first = next((p for row in batches for p in row if p is not None), None)
         if first is None:
             # an all-lost call keeps concealing at the session's frame length
@@ -430,9 +446,10 @@ class BatchedOpusDecoder(ServingSlots):
         state, ring = self._serve_state_and_ring(frame48)
         digest = None
         for t, packets in enumerate(batches):
-            digest = self._packed_step(packets, self._pk_slots[t % n_slots], self._pk_buf,
-                                       state, ring)
-        return digest.cpu().numpy()
+            with trace.span("step", step=self._next_step()):
+                digest = self._packed_step(packets, self._pk_slots[t % n_slots], self._pk_buf,
+                                           state, ring)
+        return self._wait(digest)
 
     def _serve_plan(self, batches: list, frame48: int, n_slots: int) -> np.ndarray:
         """Plan-mode serving loop: per step the upload is the plan slot's
@@ -451,24 +468,31 @@ class BatchedOpusDecoder(ServingSlots):
         state, ring = self._serve_state_and_ring(frame48)
         digest = None
         for t, packets in enumerate(batches):
-            slot = self._plan_slots[t % n_slots]
-            self._reuse(slot)
-            try:
-                corrs = self._plane_a_plan(packets, slot)
-            except OverflowError:
-                # Pathological content: ship this step as a packed spectrum
-                # (plane A restored every stream's state) instead of failing.
-                pk = self._fallback_slots[self.plan_fallbacks % 2]
-                self.plan_fallbacks += 1
-                digest = self._packed_step(packets, pk, self._fallback_buf, state, ring)
-                continue
-            lm, chunk, active, with_plc = self._step_picks(slot)
-            silk_at, words = pack_plan_silk(slot)
-            slot["upload_words"] = words
-            buf, end, at = self._upload_plan(slot, self._plan_buf, words, silk_at)
-            plc = self._serve_plc_state(self.channels) if with_plc else ()
-            step = self._mixed_plan_serving_step(lm, chunk, active, self._plan_size_class(slot),
-                                                 with_plc)
-            _, _, digest = step(state, ring, buf, *plc, end=end, silk_at=at)
-            apply_corrections(ring, corrs, frame48)
-        return digest.cpu().numpy()
+            with trace.span("step", step=self._next_step()):
+                slot = self._plan_slots[t % n_slots]
+                self._reuse(slot)
+                try:
+                    corrs = self._plane_a_plan(packets, slot)
+                except OverflowError:
+                    # Pathological content: ship this step as a packed
+                    # spectrum (plane A restored every stream's state)
+                    # instead of failing.
+                    pk = self._fallback_slots[self.plan_fallbacks % 2]
+                    self.plan_fallbacks += 1
+                    with trace.span("overflow_step"):
+                        digest = self._packed_step(packets, pk, self._fallback_buf, state, ring)
+                    continue
+                with trace.span("silk_pack"):
+                    silk_at, words = pack_plan_silk(slot)
+                with trace.span("issue"):
+                    lm, chunk, active, with_plc = self._step_picks(slot)
+                    slot["upload_words"] = words
+                    buf, end, at = self._upload_plan(slot, self._plan_buf, words, silk_at)
+                    plc = self._serve_plc_state(self.channels) if with_plc else ()
+                    step = self._mixed_plan_serving_step(lm, chunk, active,
+                                                         self._plan_size_class(slot), with_plc)
+                    _, _, digest = self._call_step(step, state, ring, buf, *plc, end=end,
+                                                   silk_at=at)
+                with trace.span("crossfade"):
+                    apply_corrections(ring, corrs, frame48)
+        return self._wait(digest)

@@ -10,6 +10,23 @@ opus_tpu.batch.pipeline.BatchedCeltDecoder).
   from plane A's pulse-vector plan.  On a CUDA device serve() captures
   each step variant once as a CUDA graph and replays it (dsp/graphs.py);
   on the CPU the steps run eagerly.
+
+The serve loops open the tracer's spans (opus_tpu_torch/trace.py; no-ops
+while it is off) at their layer boundaries, one tree a serve() call:
+
+    serve_call                  one serve() call
+      step                      one step (its id: `steps_served` before it)
+        slot_wait               the slot's previous copy (_reuse)
+        toc                     the ToC parse (mixed)
+        plane_a                 the native decode
+        silk_pack               the SILK rows' compaction and packing (mixed plan)
+        corrections             the shadow decode of redundant blocks (mixed)
+        issue                   the host's picks, the upload and the step call
+          upload                the copy's enqueue and its event
+          launch | graph_build  the step call | a variant's first call
+        crossfade               the transitions on the ring (mixed)
+        overflow_step           a plan overflow served on the packed path
+      device_wait               the digest read at serve()'s end
 """
 
 from __future__ import annotations
@@ -17,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..celt import modes
 from ..dsp.graphs import CapturedStep, SharedPool, eager
 from ..dsp.synthesis import (
@@ -71,7 +89,10 @@ class ServingSlots:
         capacity when the loss count fits it, else True (the whole batch)."""
         n_lost = int((meta[:, 14] & 1).sum())
         if 0 < n_lost <= self.PLC_COMPACT_K < self.batch:
+            trace.count("plc_steps_compact")
             return self.PLC_COMPACT_K
+        if n_lost:
+            trace.count("plc_steps_whole")
         return n_lost > 0
 
     def _host_buffer(self, words: int):
@@ -90,8 +111,12 @@ class ServingSlots:
     def _init_serving(self) -> None:
         """The serving steps by variant key, and what they are bound to:
         the device buffers by slot kind, the rings by frame length and, on
-        a CUDA device, the graphs' shared pool."""
+        a CUDA device, the graphs' shared pool; `steps_served` counts the
+        serve loops' steps (the tracer's step id)."""
         self._steps: dict = {}
+        self._built: set = set()
+        self.steps_served = 0
+        trace.watch(self)
         self._dev_bufs: dict = {}
         self._rings: dict = {}
         self._pool = SharedPool(self.device) if self.device.type == "cuda" else None
@@ -120,6 +145,33 @@ class ServingSlots:
             self._steps[key] = step if self._pool is None else CapturedStep(step, self._pool)
         return self._steps[key]
 
+    def _next_step(self) -> int:
+        """The id of the step about to be served (and one more served)."""
+        self.steps_served += 1
+        return self.steps_served - 1
+
+    def _call_step(self, step, *args, **kw):
+        """The step call, in the span `launch` (a replay of the variant's
+        CUDA graph, or the eager step on the CPU) or, at a variant's first
+        call, `graph_build` (its eager run and capture on the card),
+        counted in `graph_builds`."""
+        first = step not in self._built
+        if first:
+            self._built.add(step)
+            trace.count("graph_builds")
+        with trace.span("graph_build" if first else "launch"):
+            return step(*args, **kw)
+
+    def _wait(self, digest) -> np.ndarray:
+        """serve()'s end: the digest read, which waits for the last step,
+        then the device phase times of the captured steps' last replays."""
+        with trace.span("device_wait", step=self.steps_served - 1):
+            out = digest.cpu().numpy()
+        for step in self._steps.values():
+            if getattr(step, "pending", None) is not None:
+                step.read_phases()
+        return out
+
     def _plan_size_class(self, slot) -> tuple:
         c = slot["header"][:, 1]
         pvq_mx = int((c & 0x1FF).max(initial=0))
@@ -141,9 +193,11 @@ class ServingSlots:
     def _upload(self, slot, dev_buf, words: int) -> None:
         """Copy the slot's first `words` words to the device buffer and
         mark the copy, so the slot is not rewritten while it is in flight."""
-        dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
-        if slot["copied"] is not None:
-            slot["copied"].record()
+        with trace.span("upload"):
+            dev_buf[:words].copy_(slot["host"][:words], non_blocking=True)
+            if slot["copied"] is not None:
+                slot["copied"].record()
+        trace.count("upload_bytes", 4 * words)
 
     def _upload_plan(self, slot, dev_buf, words: int, silk_at: int = 0) -> tuple:
         """The plan upload: the step's scalars into the slot's head, then
@@ -151,17 +205,20 @@ class ServingSlots:
         (PLAN_HEAD + the slot's words).  Returns the step's inputs bound to
         dev_buf: (the slot's words, end, silk_at), the last two 0-d
         views of the head on the device."""
-        slot["head"].numpy()[:2] = words, silk_at
-        dev_buf[: self.PLAN_HEAD + words].copy_(slot["head"][: self.PLAN_HEAD + words],
-                                                non_blocking=True)
-        if slot["copied"] is not None:
-            slot["copied"].record()
+        with trace.span("upload"):
+            slot["head"].numpy()[:2] = words, silk_at
+            dev_buf[: self.PLAN_HEAD + words].copy_(slot["head"][: self.PLAN_HEAD + words],
+                                                    non_blocking=True)
+            if slot["copied"] is not None:
+                slot["copied"].record()
+        trace.count("upload_bytes", 4 * (self.PLAN_HEAD + words))
         return dev_buf[self.PLAN_HEAD :], dev_buf[0], dev_buf[1]
 
     @staticmethod
     def _reuse(slot) -> None:
-        if slot["copied"] is not None:
-            slot["copied"].synchronize()
+        with trace.span("slot_wait"):
+            if slot["copied"] is not None:
+                slot["copied"].synchronize()
 
     def _one_in_flight(self, plane_a, dispatch, batches: list):
         """The run_pipelined loop: per step, plane A on the host, then a
@@ -362,14 +419,16 @@ class BatchedCeltDecoder(ServingSlots):
         """Plane A into a packed slot, one upload, one serving step (its
         CUDA graph on the card unless not `captured`)."""
         self._reuse(slot)
-        self.native.decode_batch_q15_into(packets, frame_size, slot, stream_channels)
-        lm = self._step_lm(slot["meta"])
-        # Specialise the post-filter to this step's actual lags.
-        pf_chunk, pf_active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
-        self._upload(slot, dev_buf, dev_buf.shape[0])
-        ring = self._ring_for(ring, lm)
-        step = self._serving_step(lm, pf_chunk, pf_active, mode)
-        return (step if captured else eager(step))(state, ring, dev_buf)
+        with trace.span("plane_a"):
+            self.native.decode_batch_q15_into(packets, frame_size, slot, stream_channels)
+        with trace.span("issue"):
+            lm = self._step_lm(slot["meta"])
+            # Specialise the post-filter to this step's actual lags.
+            pf_chunk, pf_active = pf_chunk_for(slot["meta"][:, 6:9], slot["gains"])
+            self._upload(slot, dev_buf, dev_buf.shape[0])
+            ring = self._ring_for(ring, lm)
+            step = self._serving_step(lm, pf_chunk, pf_active, mode)
+            return self._call_step(step if captured else eager(step), state, ring, dev_buf)
 
     def serve(self, batches: list, frame_size: int, n_slots: int = 4,
               stream_channels=None) -> np.ndarray:
@@ -386,22 +445,24 @@ class BatchedCeltDecoder(ServingSlots):
         Returns the final step's digest (np[2]); the last frame's PCM stays
         on the device in `self._serve_ring` [B, frame, C].
         """
-        if self.transfer == "plan":
-            return self._serve_plan(batches, frame_size, n_slots, stream_channels)
-        mode = self.transfer if self.transfer in PACK_BITS else "q14"
-        if (not hasattr(self, "_slots") or len(self._slots) != n_slots
-                or self._slots[0]["mode"] != mode):
-            self._slots = self._alloc_slots(n_slots, mode)
-        dev_buf = self._device_buffer(mode, packed_offsets(self.batch, mode)["end"])
-        state, ring = self._serve_state_and_ring()
-        digest = None
-        for t, packets in enumerate(batches):
-            state, ring, digest = self._packed_step(
-                state, ring, packets, frame_size, self._slots[t % n_slots], dev_buf,
-                mode, stream_channels)
-        self._serve_state = state
-        self._serve_ring = ring
-        return digest.cpu().numpy()
+        with trace.span("serve_call", step=self.steps_served):
+            if self.transfer == "plan":
+                return self._serve_plan(batches, frame_size, n_slots, stream_channels)
+            mode = self.transfer if self.transfer in PACK_BITS else "q14"
+            if (not hasattr(self, "_slots") or len(self._slots) != n_slots
+                    or self._slots[0]["mode"] != mode):
+                self._slots = self._alloc_slots(n_slots, mode)
+            dev_buf = self._device_buffer(mode, packed_offsets(self.batch, mode)["end"])
+            state, ring = self._serve_state_and_ring()
+            digest = None
+            for t, packets in enumerate(batches):
+                with trace.span("step", step=self._next_step()):
+                    state, ring, digest = self._packed_step(
+                        state, ring, packets, frame_size, self._slots[t % n_slots], dev_buf,
+                        mode, stream_channels)
+            self._serve_state = state
+            self._serve_ring = ring
+            return self._wait(digest)
 
     def _serve_plan(self, batches: list, frame_size: int, n_slots: int = 4,
                     stream_channels=None) -> np.ndarray:
@@ -441,32 +502,39 @@ class BatchedCeltDecoder(ServingSlots):
         plc_state = self._serve_plc_state(self.channels)
         digest = None
         for t, packets in enumerate(batches):
-            slot = self._plan_slots[t % n_slots]
-            self._reuse(slot)
-            try:
-                self.native.decode_batch_plan_into(packets, frame_size, slot, stream_channels)
-            except OverflowError:
-                # Plan capacity exceeded by this step's content (plane A
-                # restored the streams' state): ship a q14 spectrum.
-                q14_slot = self._plan_q14_slots[self.plan_fallbacks % 2]
-                self.plan_fallbacks += 1
-                state, ring, digest = self._packed_step(
-                    state, ring, packets, frame_size, q14_slot, q14_buf, "q14",
-                    stream_channels, captured=False)
-                continue
-            meta = slot["meta"]
-            lm = self._step_lm(meta)
-            with_plc = self._plc_variant(meta)
-            pf_chunk, pf_active = pf_chunk_for(meta[:, 6:9], slot["gains"])
-            buf, end, _ = self._upload_plan(slot, plan_buf, self._plan_upload_words(slot))
-            ring = self._ring_for(ring, lm)
-            step = self._plan_serving_step(lm, pf_chunk, pf_active,
-                                           self._plan_size_class(slot), with_plc)
-            plc = plc_state if with_plc else ()
-            state, ring, digest = step(state, ring, buf, *plc, end=end)
+            with trace.span("step", step=self._next_step()):
+                slot = self._plan_slots[t % n_slots]
+                self._reuse(slot)
+                try:
+                    with trace.span("plane_a"):
+                        self.native.decode_batch_plan_into(packets, frame_size, slot,
+                                                           stream_channels)
+                except OverflowError:
+                    # Plan capacity exceeded by this step's content (plane A
+                    # restored the streams' state): ship a q14 spectrum.
+                    q14_slot = self._plan_q14_slots[self.plan_fallbacks % 2]
+                    self.plan_fallbacks += 1
+                    with trace.span("overflow_step"):
+                        state, ring, digest = self._packed_step(
+                            state, ring, packets, frame_size, q14_slot, q14_buf, "q14",
+                            stream_channels, captured=False)
+                    continue
+                with trace.span("issue"):
+                    meta = slot["meta"]
+                    lm = self._step_lm(meta)
+                    with_plc = self._plc_variant(meta)
+                    pf_chunk, pf_active = pf_chunk_for(meta[:, 6:9], slot["gains"])
+                    buf, end, _ = self._upload_plan(slot, plan_buf,
+                                                    self._plan_upload_words(slot))
+                    ring = self._ring_for(ring, lm)
+                    step = self._plan_serving_step(lm, pf_chunk, pf_active,
+                                                   self._plan_size_class(slot), with_plc)
+                    plc = plc_state if with_plc else ()
+                    state, ring, digest = self._call_step(step, state, ring, buf, *plc,
+                                                          end=end)
         self._serve_state = state
         self._serve_ring = ring
-        return digest.cpu().numpy()
+        return self._wait(digest)
 
     def final_ranges(self) -> list[int]:
         return self.native.final_ranges()

@@ -25,6 +25,12 @@ a replay.  A capture or replay that fails raises; there is no eager path
 on the card.  The kernel wrappers count their launches in Python, which a
 replay does not run: the counts a capture adds are taken back and added
 again on every replay, so a counter counts the launches the card ran.
+
+While the tracer is on (opus_tpu_torch/trace.py) when a variant is
+captured, the capture also records the step's device phase marks as
+timing events; a replay's phase times are read once its last event has
+completed, checked before the variant's next replay or at serve()'s final
+wait (`read_phases`), never by a sync.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import time
 
 import torch
 
+from .. import trace
 from .plc_scan import lpc_synth, pitch_track
 from .postfilter import postfilter
 from .rotation import rot_pass
@@ -69,7 +76,10 @@ class CapturedStep:
     """A serving step served from its CUDA graph: call it as the step,
     step(state, ring, buf, *plc, **kw) -> (state, ring, digest).  `step`
     is the uncaptured step; `capture_ms` the host ms of the first call
-    (eager run and capture); `launches` each wrapper's launches a replay."""
+    (eager run and capture); `launches` each wrapper's launches a replay;
+    `phases` the (name, event) marks captured with the graph (empty when
+    the tracer was off at the capture), `pending` the step id of the last
+    replay whose phases are not read yet."""
 
     def __init__(self, step, pool: SharedPool):
         self.step = step
@@ -78,6 +88,8 @@ class CapturedStep:
         self.layout = None
         self.launches = {}
         self.capture_ms = None
+        self.phases = []
+        self.pending = None
 
     def __call__(self, state, ring, buf, *plc, **kw):
         layout = _layout((state, ring, buf, *plc), kw)
@@ -87,9 +99,13 @@ class CapturedStep:
             raise ValueError("a captured serving step was called with other tensors than "
                              "the ones it was captured with")
         else:
+            if self.pending is not None:
+                self.read_phases()
             self.graph.replay()
             for fn, n in self.launches.items():
                 fn.launches += n
+            if self.phases and trace.on:
+                self.pending = trace.current_step()
         return state, ring, self.pool.digest
 
     def _run(self, args, kw) -> None:
@@ -108,14 +124,25 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool.handle, capture_error_mode="thread_local"):
-                self._run(args, kw)
+                with trace.phases() as marks:
+                    self._run(args, kw)
             self.launches = {fn: fn.launches - n for fn, n in before.items()
                              if fn.launches != n}
         finally:
             for fn, n in before.items():
                 fn.launches = n
-        self.graph, self.layout = graph, layout
+        self.graph, self.layout, self.phases = graph, layout, marks
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def read_phases(self) -> None:
+        """The pending replay's phase times into the tracer if its last
+        event has completed, else counted in `device_phases_missed` (the
+        next replay records over them)."""
+        step, self.pending = self.pending, None
+        if self.phases[-1][1].query():
+            trace.device_phases(step, self.phases)
+        else:
+            trace.count("device_phases_missed")
 
 
 def eager(step):

@@ -24,7 +24,11 @@ the plan executor) update state and PCM ring in place, which stands in
 for the reference's buffer donation.  Their shapes depend on the step
 variant alone, never on a step's data, so that each variant can be
 captured once as a CUDA graph (dsp/graphs.py): a plan step reads where
-its upload ends from a device scalar.
+its upload ends from a device scalar.  Each serving step marks its
+device phases for the tracer (opus_tpu_torch/trace.py `mark`: events
+only while a traced capture records them): `plan_exec` (unpack and plan
+executor) or `unpack`, `silk` (row expansion and resampling), `conceal`
+and `synthesis` (the core).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..celt import modes
 from ..celt.modes import DECODE_BUFFER_SIZE
 from .postfilter import postfilter
@@ -422,6 +427,7 @@ def _make_conceal(lm: int, batch: int, channels: int, with_plc, *, device):
         else:
             mem_c, new_lpc, new_pitch, out_f_c = conceal(
                 state.mem, plc_lpc, plc_pitch, plc_mask, first, u_period, u_gain, u_tapset)
+        trace.mark("conceal")
         digest = run_core((plc_mask, out_f_c, mem_c))
         plc_lpc.copy_(torch.where(plc_mask[:, None, None], new_lpc, plc_lpc))
         plc_pitch.copy_(torch.where(plc_mask, new_pitch, plc_pitch))
@@ -478,10 +484,12 @@ def make_serving_step(lm: int, batch: int, channels: int = 2, downsample: int = 
     @torch.no_grad()
     def step(state: SynthState, ring, buf, *plc):
         xs, ble, meta, gains = unpack(buf)
+        trace.mark("unpack")
         silk = (None, None)
         if silk_mix:
             rows = buf[off["silk"] : off["ble"]].view(torch.int16).reshape(batch, 2 * silk_words)
             silk = silk_of(state, rows[:, :silk_samps].to(torch.float32), meta)
+            trace.mark("silk")
         return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
     return step
@@ -499,6 +507,7 @@ def _run_core(core, around, state, ring, planes, plc, silk):
     digest = around(state, planes[2], *plc, run) if around is not None else run()
     if new_hist is not None:
         state.silk_hist.copy_(new_hist)
+    trace.mark("synthesis")
     return state, ring, digest
 
 
@@ -617,11 +626,13 @@ def make_plan_serving_step(lm: int, batch: int, channels: int = 2, downsample: i
         header, ble, meta, gains, bands = unpack(buf)
         arena_end = silk_at if silk_mix else end
         xs = executor(header, bands, meta, buf[o_arena:], arena_end - o_arena)
+        trace.mark("plan_exec")
         silk = (None, None)
         if silk_mix:
             rows = expand_silk_rows(buf, silk_at, end, buf[o_smap:o_arena], silk_words,
                                     silk_samps)
             silk = silk_of(state, rows, meta)
+            trace.mark("silk")
         return _run_core(core, around, state, ring, (xs, ble, meta, gains), plc, silk)
 
     return step

@@ -5,12 +5,15 @@
 Makes the payloads as chip_smoke.py does (B=1024 stereo 48 kHz CELT, 20 ms
 frames, 96 kbps, 13 steps).  For each main path (p10, plan, plan-loss:
 the plan transfer with chip_smoke.py's losses) it serves them once to
-warm up and once more timed, and prints where a serve() step's wall time
-goes: plane A, the serving step's call on the host (the replay of its
-CUDA graph, captured in the warm-up), the rest, and the device's busy and
-idle share under torch.profiler.  Then, for single serving steps on one
-slot, run eagerly (the factory's step, whose launches are the graph's
-kernels), it prints beside the card's name and power limit:
+warm up and once more with the port's tracer on (opus_tpu_torch/trace.py),
+and prints where a serve() step's wall time goes: the host ms a step of
+every span of the serve loop (plane A, the ToC parse, the slot wait, the
+step issue with its upload and replay, the shadow decode and crossfades,
+the final device wait; the step's self time), the device phases of the
+captured steps, and the device's busy and idle share under
+torch.profiler.  Then, for single serving steps on one slot, run eagerly
+(the factory's step, whose launches are the graph's kernels), it prints
+beside the card's name and power limit:
 
 * the host time to issue one step (host clock around the call, no sync);
 * the device time per step by CUDA events over N back-to-back steps;
@@ -27,18 +30,15 @@ clean variant on the same slot, with the difference in kernels per step.
 The mixed traffic (chip_smoke.py's: one stream in three each of CELT,
 SILK WB and hybrid SWB, the plan transfer with the internal SILK
 transfer) gets the same: a serve breakdown of mixed, mixed-loss and
-mixed-switch (with the ToC parse apart from plane A, and the shadow
-decode of redundant blocks and the crossfades on the ring apart from the
-rest), and a profile of the first mixed step
-and of the first mixed-loss step that conceals, with the device time of
-the SILK resampler's products (`_silk_resample`, under a profiler range).
+mixed-switch, and a profile of the first mixed step and of the first
+mixed-loss step that conceals, with the device time of the SILK
+resampler's products (`_silk_resample`, under a profiler range).
 
 The slice's paths (chip_smoke.py's traffic) get a breakdown too: the
-multistream serve loop, 256 8-channel sessions on plan and on p10 (the
-elementary packets' split, plane A, the step issue, the channel
-un-mapping with its fetch, the rest), and the SILK-only decoder at
-B=1024 WB (the host front end, the device step: upload and silk_synth,
-the rest), each with the device's busy and idle share.
+multistream serve loop, 256 8-channel sessions on plan and on p10 (its
+`split` and `unmap` spans beside the core's), and the SILK-only decoder
+at B=1024 WB (no serve loop, so its host front end and device step are
+timed by wrappers), each with the device's busy and idle share.
 
 The full profiler tables go to chiprun_out/torch_profile.txt.  Needs a
 CUDA device; exits non-zero without one.
@@ -145,17 +145,6 @@ def profile(name, step_fn, steps: int, where: str, out) -> float:
     return kernels
 
 
-def _timed(fn, spent: dict, key: str):
-    """fn, with its host seconds added to spent[key] on every call."""
-    def run(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **k)
-        finally:
-            spent[key] += time.perf_counter() - t0
-    return run
-
-
 def _busy_run(run) -> tuple[float, float]:
     """(wall s, device busy s) of run() under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -166,82 +155,72 @@ def _busy_run(run) -> tuple[float, float]:
     return wall, sum(_device_us(e) for e in _kernels(prof.key_averages())) / 1e6
 
 
+def breakdown(name: str, warm, run, n: int, where: str) -> None:
+    """Where a serve() run's wall time goes, per step, read from the port's
+    tracer (opus_tpu_torch/trace.py): the host ms of every span (`step`'s
+    self time is what its children leave), the device phases of the
+    captured steps (the tracer is on from the warm-up, whose captures
+    record them), and the device's busy share of the run under
+    torch.profiler."""
+    from opus_tpu_torch import trace
+
+    trace.enable()
+    try:
+        warm()
+        trace.clear()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    spans = trace.spans()
+    trace.clear()
+    host, device, children = {}, {}, {}
+    for s in spans:
+        ms = (s.end_ns - s.start_ns) / 1e6
+        kind = device if s.device else host
+        kind[s.name] = kind.get(s.name, 0.0) + ms
+        if not s.device and s.parent is not None:
+            children[s.parent] = children.get(s.parent, 0.0) + ms
+    step_self = sum((s.end_ns - s.start_ns) / 1e6 - children.get(s.id, 0.0)
+                    for s in spans if not s.device and s.name == "step")
+    wall_prof, busy = _busy_run(run)
+    print(f"serve {name} breakdown, {n} steps: wall ms/step={wall / n * 1e3} "
+          + " ".join(f"{k}={v / n}" for k, v in sorted(host.items()))
+          + f" step_self={step_self / n}; device phases ms/step "
+          + " ".join(f"{k}={v / n}" for k, v in sorted(device.items()))
+          + f"; under the profiler: wall ms/step={wall_prof / n * 1e3} device_busy="
+          f"{busy / n * 1e3} device_idle_share={1 - busy / wall_prof} ({where})")
+
+
 def serve_breakdown(transfer: str, batches, where: str, name: str = "") -> None:
-    """Where a serve() run's wall time goes, per step: plane A (the native
-    decode), the serving step's issue on the host, and the rest (upload,
-    picks, the final digest sync); plus the device busy share of the run
-    under torch.profiler."""
+    """breakdown() of the CELT serve loop at B=1024 on `transfer`."""
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.pipeline import BatchedCeltDecoder
 
     dec = BatchedCeltDecoder(cs.B, cs.C, transfer=transfer, device=torch.device("cuda"))
-    dec.serve(batches, cs.FRAME)  # warm-up
-    spent = {"plane A": 0.0, "step issue": 0.0}
-    decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
-    setattr(dec.native, decode, _timed(getattr(dec.native, decode), spent, "plane A"))
-    for key in list(dec._steps):
-        dec._steps[key] = _timed(dec._steps[key], spent, "step issue")
-    t0 = time.perf_counter()
-    dec.serve(batches, cs.FRAME)
-    wall = time.perf_counter() - t0
-    n = len(batches)
-    timed_run = dict(spent)  # the profiled run below adds to the live counters
-    rest = wall - sum(timed_run.values())
-    wall_prof, busy = _busy_run(lambda: dec.serve(batches, cs.FRAME))
-    print(f"serve {name or transfer} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
-          f"plane_A={timed_run['plane A'] / n * 1e3} "
-          f"step_issue={timed_run['step issue'] / n * 1e3} "
-          f"rest={rest / n * 1e3}; under the profiler: wall ms/step={wall_prof / n * 1e3} "
-          f"device_busy={busy / n * 1e3} device_idle_share={1 - busy / wall_prof} ({where})")
+    run = lambda: dec.serve(batches, cs.FRAME)  # noqa: E731
+    breakdown(f"{name or transfer} B={cs.B}", run, run, len(batches), where)
 
 
 def mixed_breakdown(batches, where: str, name: str) -> None:
-    """serve_breakdown for the mixed plan loop (internal SILK): plane A,
-    the ToC parse, the step issue, the shadow decode of redundant blocks
-    (_collect_corrections), the crossfades on the ring (apply_corrections,
-    with the upload of their rows) and the rest, and the device busy
-    share."""
+    """breakdown() of the mixed plan loop (internal SILK) at B=1024."""
     import chip_smoke as cs
 
-    from opus_tpu_torch.batch import opus_pipeline
+    from opus_tpu_torch.batch.opus_pipeline import BatchedOpusDecoder
 
-    dec = opus_pipeline.BatchedOpusDecoder(cs.B, cs.C, transfer="plan", silk_transfer="internal",
-                                           device=torch.device("cuda"))
-    dec.serve(batches)  # warm-up
-    spent = {"plane A": 0.0, "ToC parse": 0.0, "step issue": 0.0, "shadow": 0.0,
-             "crossfade": 0.0}
-    dec.native.decode_batch_plan_into = _timed(dec.native.decode_batch_plan_into, spent,
-                                               "plane A")
-    dec._toc_arrays = _timed(dec._toc_arrays, spent, "ToC parse")
-    dec._collect_corrections = _timed(dec._collect_corrections, spent, "shadow")
-    for key in list(dec._steps):
-        dec._steps[key] = _timed(dec._steps[key], spent, "step issue")
-    real_apply = opus_pipeline.apply_corrections
-    opus_pipeline.apply_corrections = _timed(real_apply, spent, "crossfade")
-    try:
-        t0 = time.perf_counter()
-        dec.serve(batches)
-        wall = time.perf_counter() - t0
-    finally:
-        opus_pipeline.apply_corrections = real_apply
-    n = len(batches)
-    run = dict(spent)
-    wall_prof, busy = _busy_run(lambda: dec.serve(batches))
-    print(f"serve {name} breakdown B={cs.B}, {n} steps: wall ms/step={wall / n * 1e3} "
-          f"plane_A={run['plane A'] / n * 1e3} toc_parse={run['ToC parse'] / n * 1e3} "
-          f"step_issue={run['step issue'] / n * 1e3} shadow={run['shadow'] / n * 1e3} "
-          f"crossfade={run['crossfade'] / n * 1e3} "
-          f"rest={(wall - sum(run.values())) / n * 1e3}; under the profiler: wall ms/step="
-          f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} "
-          f"device_idle_share={1 - busy / wall_prof} fallbacks={dec.plan_fallbacks} ({where})")
+    dec = BatchedOpusDecoder(cs.B, cs.C, transfer="plan", silk_transfer="internal",
+                             device=torch.device("cuda"))
+    run = lambda: dec.serve(batches)  # noqa: E731
+    breakdown(f"{name} B={cs.B}", run, run, len(batches), where)
+    print(f"serve {name}: plan fallbacks {dec.plan_fallbacks} ({where})")
 
 
 def multistream_breakdown(name: str, where: str) -> None:
-    """Where a multistream serve() run's wall time goes, per step (chip_smoke
-    MS_PATHS[name], every fixture step): the split of each session's packet
-    into elementary payloads, plane A, the serving step's issue, the
-    un-mapping gather and its fetch, and the rest; the device busy share."""
+    """breakdown() of a multistream serve() run (chip_smoke MS_PATHS[name],
+    every fixture step): the split into elementary payloads and the
+    un-mapping with its fetch are spans of their own."""
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
@@ -251,34 +230,18 @@ def multistream_breakdown(name: str, where: str) -> None:
     bmd = BatchedMultistreamDecoder(sessions, ch, streams, coupled, mapping, mode=mode,
                                     device=torch.device("cuda"))
     bmd.core.transfer = transfer
-    bmd.serve(steps, cs.FRAME)  # warm-up
-    core = bmd.core
-    spent = dict.fromkeys(("split", "plane A", "step issue", "unmap"), 0.0)
-    bmd._split_batch = _timed(bmd._split_batch, spent, "split")
-    bmd.unmap_on_device = _timed(bmd.unmap_on_device, spent, "unmap")
-    decode = "decode_batch_plan_into" if transfer == "plan" else "decode_batch_q15_into"
-    setattr(core.native, decode, _timed(getattr(core.native, decode), spent, "plane A"))
-    for key in list(core._steps):
-        core._steps[key] = _timed(core._steps[key], spent, "step issue")
-    t0 = time.perf_counter()
-    bmd.serve(steps, cs.FRAME)
-    wall = time.perf_counter() - t0
-    n = len(steps)
-    parts = {k: v / n * 1e3 for k, v in spent.items()}
-    wall_prof, busy = _busy_run(lambda: bmd.serve(steps, cs.FRAME))
-    print(f"serve {name} breakdown {sessions} sessions ({sessions * streams} elementary), {n} "
-          f"steps: wall ms/step={wall / n * 1e3} "
-          + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in parts.items())
-          + f" rest={wall / n * 1e3 - sum(parts.values())}; under the profiler: wall ms/step="
-          f"{wall_prof / n * 1e3} device_busy={busy / n * 1e3} device_idle_share="
-          f"{1 - busy / wall_prof} ({where})")
+    run = lambda: bmd.serve(steps, cs.FRAME)  # noqa: E731
+    breakdown(f"{name} {sessions} sessions ({sessions * streams} elementary)", run, run,
+              len(steps), where)
 
 
 def silk_breakdown(steps: int, where: str) -> None:
     """Where a SILK-only decode_frames step's wall time goes at B=1024 WB
     (chip_smoke.py's payloads): the host front end (planes), the device
     step (synthesize: the uploads and the silk_synth launch) and the rest
-    (the fetch and the feedback of the output); the device busy share."""
+    (the fetch and the feedback of the output); the device busy share.
+    The SILK-only decoder has no serve loop, so no span of the tracer:
+    its two phases are timed by wrapping them here."""
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.silk_pipeline import BatchedSilkDecoder
@@ -287,8 +250,18 @@ def silk_breakdown(steps: int, where: str) -> None:
     dec = BatchedSilkDecoder(cs.B, 16, device=torch.device("cuda"))
     dec.decode_frames(batches[0])  # warm-up
     spent = dict.fromkeys(("front end", "device step"), 0.0)
-    dec.planes = _timed(dec.planes, spent, "front end")
-    dec.synthesize = _timed(dec.synthesize, spent, "device step")
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    dec.planes = timed(dec.planes, "front end")
+    dec.synthesize = timed(dec.synthesize, "device step")
     t0 = time.perf_counter()
     for payloads in batches[1:]:
         dec.decode_frames(payloads)
