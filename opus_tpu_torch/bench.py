@@ -283,9 +283,9 @@ def plane_a_openmp() -> bool:
     where the compiler's probe passes): its batch entries then run their
     stream loop on the host's cores, so the `_per_core` host rows are
     not one core's."""
-    from .native import build as native_build
+    from .native.frontend import openmp_built
 
-    return native_build._flag_works(os.environ.get("CXX", "g++"), "-fopenmp")
+    return openmp_built()
 
 
 def libopus_rows(pkts: list, sig: dict, reps: dict) -> dict:
@@ -322,17 +322,18 @@ def libopus_rows(pkts: list, sig: dict, reps: dict) -> dict:
     return {"decode": decode, "celt": celt, "silk": silk, "hybrid": hybrid}
 
 
-def host_plane(batches: list, batch: int, reps: dict) -> tuple[float, float]:
+def host_plane(batches: list, batch: int, reps: dict) -> tuple[float, float, int]:
     """Plane A alone (`bench.py:279-298`): the plan decode of step 0's
     packets into a plan slot, best of 5; returns (audio-s a second, upload
-    bytes a stream: the slot's used words x 4 / B)."""
+    bytes a stream: the slot's used words x 4 / B, the host threads the
+    decode ran on: native/frontend.py plan_shards)."""
     from .native.frontend import NativeBatchFrontEnd
 
     front = NativeBatchFrontEnd(batch, 2, 1)
     slot = front.alloc_plan_slots(2)[0]
     best = min(timed_runs(lambda: front.decode_batch_plan_into(batches[0], FRAME, slot),
                           reps["host"]))
-    return batch * FRAME_S / best, slot["used_words"] * 4 / batch
+    return batch * FRAME_S / best, slot["used_words"] * 4 / batch, front.shards
 
 
 def encode_rows(sig: dict, reps: dict) -> dict:
@@ -468,7 +469,7 @@ def run(smoke: bool = False, device: str = "cuda") -> dict:
     audio_s = steps * B * FRAME_S
 
     lib = libopus_rows(tr["pkts"], sig, reps) if libopus else None
-    host_rate, plan_bytes = host_plane(batches, B, reps)
+    host_rate, plan_bytes, shards = host_plane(batches, B, reps)
     enc = encode_rows(sig, reps)
     peaks = Peaks(dev)
 
@@ -589,6 +590,8 @@ def run(smoke: bool = False, device: str = "cuda") -> dict:
         "peak_memory_bytes": peaks.bytes,
         "host_cpus_usable": len(os.sched_getaffinity(0)),
         "plane_a_openmp": plane_a_openmp(),
+        # the host row's threads: `_per_core` is a core's only where it is 1
+        "plane_a_shards": shards,
         "device": str(dev),
         "card": card(dev),
         "smoke": smoke,

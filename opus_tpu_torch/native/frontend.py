@@ -11,17 +11,24 @@ NativeVoiceEncoder, NativeStereoVoiceEncoder and NativeHybridEncoder, by
 those names; NativeCeltFrontEnd, NativeSilkEncoder, NativeSilkFrontEnd
 and NativeSilkBatch keep the reference's constructors, methods and
 return values.  The engines are built from this directory's sources by
-build.py; the port imports nothing of `opus_tpu`.
+build.py; the port imports nothing of `opus_tpu`.  Where the library has
+no OpenMP, NativeBatchFrontEnd runs the CELT plan decode over host
+threads, each in its own copy of the library (plan_shards).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import pathlib
+import queue
+import shutil
+import threading
 
 import numpy as np
 
-from .build import build
+from .. import trace
+from .build import OUT, build
 
 #: iy bit-stream fetch window of the plan executor, in u32 words per
 #: stream; plans whose iy span exceeds PLAN_IYW - 1 are rejected (the
@@ -57,7 +64,12 @@ def _load():
     override = os.environ.get("OPUS_TPU_NATIVE_LIB")
     if override and not os.path.exists(override):
         raise FileNotFoundError(f"OPUS_TPU_NATIVE_LIB={override} not found")
-    lib = ctypes.CDLL(override or str(build()))
+    _LIB = _bind(ctypes.CDLL(override or str(build())))
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' argument and result types on `lib`."""
     lib.celt_fe_create.restype = ctypes.c_void_p
     lib.celt_fe_create.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.celt_fe_destroy.argtypes = [ctypes.c_void_p]
@@ -65,6 +77,9 @@ def _load():
     lib.celt_fe_rng.argtypes = [ctypes.c_void_p]
     lib.celt_fe_reset.argtypes = [ctypes.c_void_p]
     lib.celt_fe_config.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.celt_fe_state_bytes.restype = ctypes.c_int
+    lib.celt_fe_state_get.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.celt_fe_state_set.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.celt_fe_decode.restype = ctypes.c_int
@@ -178,7 +193,6 @@ def _load():
     lib.silk_fe_decode_batch.restype = ctypes.c_int
     lib.silk_fe_decode_batch.argtypes = [vpp, ctypes.c_char_p, i32p, ctypes.c_int, i16p,
                                          ctypes.c_int64, u32p]
-    _LIB = lib
     return lib
 
 
@@ -192,6 +206,98 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+# --- plane A over host threads ---------------------------------------------
+# The CELT plan entry keeps a process-wide pool of plan sinks, so two
+# threads must not call it in one library.  Shard k >= 1 of a plan decode
+# therefore runs in its own copy of the library (its own statics), on its
+# own worker thread; shard 0 runs in the primary on the calling thread.
+# FrontEnd states are pointer-free PODs, so any copy decodes any stream.
+
+_COPIES: dict = {}
+
+
+def _load_copy(k: int) -> ctypes.CDLL:
+    """Shard k's copy of the primary library (k >= 1): a byte copy beside
+    the build, under a name derived from the primary's, loaded by its own
+    CDLL with the same types and its read-only tables warmed (the
+    primary's warm at its first celt_fe_create)."""
+    if k not in _COPIES:
+        src = pathlib.Path(_load()._name)
+        dst = OUT / f"{src.stem}.shard{k}{src.suffix}"
+        if not dst.exists():
+            OUT.mkdir(exist_ok=True)
+            tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+            shutil.copyfile(src, tmp)
+            os.replace(tmp, dst)  # atomic, as build.py writes the library
+        lib = _bind(ctypes.CDLL(str(dst)))
+        lib.celt_fe_destroy(lib.celt_fe_create(2, 1))
+        _COPIES[k] = lib
+    return _COPIES[k]
+
+
+def openmp_built() -> bool:
+    """Whether the library runs its batch loops under OpenMP: it then links
+    an OpenMP runtime, whose symbols a lookup through its handle finds."""
+    return hasattr(_load(), "omp_get_max_threads")
+
+
+def _usable_cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+#: Streams a shard at least: a shard's thread wakes and hands its result
+#: back in 0.1-1 ms on an 8-core H100 host, which should cost at most
+#: about half of its work (some 50 us a stream).
+SHARD_STREAMS = 32
+
+
+def plan_shards(batch: int) -> int:
+    """Shards of a CELT plan decode of `batch` streams: one a usable core
+    but one (the core that issues the device work), at least SHARD_STREAMS
+    streams each; one where the library's own loop is already parallel."""
+    if openmp_built():
+        return 1
+    return max(1, min(_usable_cores() - 1, batch // SHARD_STREAMS))
+
+
+def _plan_call(lib: ctypes.CDLL, args: tuple):
+    """One shard's plan call (ctypes drops the GIL for it): its return
+    code, or the exception it raised, for the calling thread to raise."""
+    try:
+        return lib.celt_fe_decode_batch_plan(*args)
+    except Exception as e:  # noqa: BLE001
+        return e
+
+
+def _shard_worker(lib: ctypes.CDLL, jobs: queue.SimpleQueue) -> None:
+    """A shard's thread: sleeps on its queue and runs each plan call in
+    its own library copy, reporting (shard, result).  Opens no tracer
+    span: the tracer is the serving thread's."""
+    while True:
+        s, args, done = jobs.get()
+        done.put((s, _plan_call(lib, args)))
+
+
+#: Job queues of the started shard threads; entry k - 1 drives copy k.
+_WORKERS: list = []
+
+
+def _workers(n: int) -> list:
+    """The job queues of shards 1..n, starting the missing threads."""
+    while len(_WORKERS) < n:
+        k = len(_WORKERS) + 1
+        jobs = queue.SimpleQueue()
+        threading.Thread(target=_shard_worker, args=(_load_copy(k), jobs), daemon=True,
+                         name=f"plane-a-shard-{k}").start()
+        _WORKERS.append(jobs)
+    return _WORKERS[:n]
+
+
+# A forked child has none of the parent's threads: its first sharded call
+# starts its own.
+os.register_at_fork(after_in_child=_WORKERS.clear)
 
 
 class NativeCeltFrontEnd:
@@ -257,6 +363,10 @@ class NativeBatchFrontEnd:
     Each decode runs every stream's symbol decode in one C call.  None
     packets are lost: the engine conceals them (noise regime, or, in plan
     mode, pitch-regime flags for the device; see celt_frontend.cpp).
+
+    The streams' states are the rows of one host array (`handles` are
+    the rows' addresses), so that the plan decode over `shards` blocks of
+    streams (plan_shards) snapshots and restores them in one copy.
     """
 
     NB = _NB
@@ -266,9 +376,17 @@ class NativeBatchFrontEnd:
         self.batch = batch
         self.channels = channels
         self.downsample = downsample
-        self.handles = (ctypes.c_void_p * batch)(
-            *[self.lib.celt_fe_create(channels, downsample) for _ in range(batch)]
-        )
+        # One fresh state, copied into every row (8-byte aligned, as the
+        # engine's `new FrontEnd` is); nothing frees the rows but numpy.
+        words = -(-self.lib.celt_fe_state_bytes() // 8)
+        self._states = np.zeros((batch, words), np.uint64)
+        fresh = self.lib.celt_fe_create(channels, downsample)
+        self.lib.celt_fe_state_get(fresh, self._states[:1].ctypes.data)
+        self.lib.celt_fe_destroy(fresh)
+        self._states[1:] = self._states[0]
+        base, row = self._states.ctypes.data, self._states.strides[0]
+        self.handles = (ctypes.c_void_p * batch)(*[base + i * row for i in range(batch)])
+        self._init_shards()
         # Double-buffered output planes of decode_batch_f32/_q15.
         self._slots = [
             dict(
@@ -282,12 +400,34 @@ class NativeBatchFrontEnd:
         ]
         self._slot = 0
 
-    def __del__(self):
-        try:
-            for h in self.handles:
-                self.lib.celt_fe_destroy(h)
-        except (AttributeError, TypeError):
-            pass
+    def _init_shards(self) -> None:
+        """The plan decode's blocks of streams, contiguous and within one
+        stream of equal, with what each shard's call needs that no step
+        changes: its library, its handles, its rows of the step's lengths
+        and channels and its used-words cell (its scratch arena comes with
+        the first slot).  The shards' threads start here, once a process."""
+        B, S = self.batch, plan_shards(self.batch)
+        self.shards = S
+        if S == 1:
+            return
+        edges = [B * s // S for s in range(S + 1)]
+        self._blocks = list(zip(edges[:-1], edges[1:]))
+        self._lens = np.zeros(B, np.int32)
+        self._sch = np.zeros(B, np.int32)
+        self._snap = np.empty_like(self._states)
+        self._used = [ctypes.c_int64(0) for _ in range(S)]
+        _workers(S - 1)
+        self._done = queue.SimpleQueue()
+        self._scratch = [None] * S
+        self._slot_args = {}
+        vpp = ctypes.POINTER(ctypes.c_void_p)
+        self._shard_head = [
+            (self.lib if s == 0 else _load_copy(s),
+             ctypes.cast(ctypes.addressof(self.handles) + a * ctypes.sizeof(ctypes.c_void_p),
+                         vpp),
+             _ptr(self._lens[a:], ctypes.c_int32), b - a, _ptr(self._sch[a:], ctypes.c_int32),
+             ctypes.pointer(self._used[s]))
+            for s, (a, b) in enumerate(self._blocks)]
 
     def reset(self):
         for h in self.handles:
@@ -410,28 +550,110 @@ class NativeBatchFrontEnd:
         slot["iy_spans"]; raises OverflowError on arena exhaustion (the
         engine restores the streams' state first; callers fall back to a
         spectral step).  want_xdbg also returns the engine's own f32
-        spectra in slot["xdbg"] [B, 1920] (the tests' reference)."""
+        spectra in slot["xdbg"] [B, 1920] (the tests' reference).  Runs
+        over `shards` threads (plan_shards) and counts them in the
+        tracer's `plane_a_shards`; the slot is the one call's either way."""
         B = self.batch
-        blob, lens, sch, n48 = self._inputs(packets, frame_size, stream_channels)
-        used = ctypes.c_int64(0)
+        trace.count("plane_a_shards", self.shards)
         xdbg = np.zeros((B, 2 * 960), np.float32) if want_xdbg else None
-        rc = self.lib.celt_fe_decode_batch_plan(
-            self.handles, blob, _ptr(lens, ctypes.c_int32), B, n48,
-            _ptr(sch, ctypes.c_int32),
-            _ptr(slot["header"], ctypes.c_int32), _ptr(slot["ble"], ctypes.c_float),
-            _ptr(slot["meta"], ctypes.c_int32), _ptr(slot["gains"], ctypes.c_float),
-            _ptr(slot["bands"], ctypes.c_int32),
-            _ptr(slot["arena"], ctypes.c_int32), slot["arena"].shape[0],
-            ctypes.byref(used),
-            _ptr(xdbg, ctypes.c_float) if want_xdbg else None,
-            xdbg.shape[1] if want_xdbg else 0,
-        )
-        if rc == -(B + 1):
-            raise OverflowError("plan arena capacity exceeded")
-        self._check(rc)
-        finish_plan_slot(slot, int(used.value))
+        if self.shards > 1:
+            used = self._decode_plan_shards(packets, frame_size, slot, stream_channels, xdbg)
+        else:
+            blob, lens, sch, n48 = self._inputs(packets, frame_size, stream_channels)
+            cell = ctypes.c_int64(0)
+            rc = self.lib.celt_fe_decode_batch_plan(
+                self.handles, blob, _ptr(lens, ctypes.c_int32), B, n48,
+                _ptr(sch, ctypes.c_int32),
+                _ptr(slot["header"], ctypes.c_int32), _ptr(slot["ble"], ctypes.c_float),
+                _ptr(slot["meta"], ctypes.c_int32), _ptr(slot["gains"], ctypes.c_float),
+                _ptr(slot["bands"], ctypes.c_int32),
+                _ptr(slot["arena"], ctypes.c_int32), slot["arena"].shape[0],
+                ctypes.byref(cell),
+                _ptr(xdbg, ctypes.c_float) if want_xdbg else None,
+                xdbg.shape[1] if want_xdbg else 0,
+            )
+            if rc == -(B + 1):
+                raise OverflowError("plan arena capacity exceeded")
+            self._check(rc)
+            used = int(cell.value)
+        finish_plan_slot(slot, used)
         slot["xdbg"] = xdbg
         return slot
+
+    def _decode_plan_shards(self, packets: list, frame_size: int, slot: dict,
+                            stream_channels, xdbg) -> int:
+        """The plan decode with each block of streams in its own library
+        copy, on its own thread (shard 0 on this one).  Each shard writes
+        its rows of the staging arrays in place and its arena into an
+        arena of the slot's capacity; the merge lays the arenas end to end
+        in stream order and rebases each shard's offsets by the words
+        before it, so header, arena prefix and used words are the one
+        call's.  As the one call, it is a transaction: if any shard fails
+        or overflows, every stream's state is restored and the one call's
+        exception raised.  Returns the used arena words."""
+        self._lens[:] = [0 if p is None else len(p) for p in packets]
+        self._sch[:] = self.channels if stream_channels is None else stream_channels
+        n48 = frame_size * self.downsample
+        rows = self._slot_rows(slot)
+        cap = slot["arena"].shape[0]
+        np.copyto(self._snap, self._states)
+        calls = []
+        for s, ((lib, handles, lens, n, sch, used), (a, b)) in enumerate(
+                zip(self._shard_head, self._blocks)):
+            dbg = (_ptr(xdbg[a:], ctypes.c_float), xdbg.shape[1]) if xdbg is not None else (
+                None, 0)
+            calls.append((lib, (handles, b"".join(p or b"" for p in packets[a:b]), lens, n, n48,
+                                sch, *rows[s], cap, used, *dbg)))
+        # Every call is ready before a thread wakes: a woken thread waits for
+        # the interpreter lock, which this one gives up in shard 0's call.
+        for s, jobs in enumerate(_workers(self.shards - 1), 1):
+            jobs.put((s, calls[s][1], self._done))
+        rcs = [_plan_call(*calls[0])] + [None] * (self.shards - 1)
+        for _ in range(self.shards - 1):
+            s, rc = self._done.get()
+            rcs[s] = rc
+        used = [u.value for u in self._used]
+        if any(not isinstance(rc, int) or rc < 0 for rc in rcs) or sum(used) > cap:
+            np.copyto(self._states, self._snap)
+            for rc in rcs:
+                if not isinstance(rc, int):
+                    raise rc
+            # A shard's -(i + 1) is a decode error at its stream i, and
+            # -(its streams + 1) an overflow; the one call reports the
+            # last stream in error, else the overflow.
+            failed = [a - rc - 1 for (a, b), rc in zip(self._blocks, rcs)
+                      if rc < 0 and rc != a - b - 1]
+            if failed:
+                self._check(-max(failed) - 1)
+            raise OverflowError("plan arena capacity exceeded")
+        base = used[0]
+        for (a, b), n, scratch in zip(self._blocks[1:], used[1:], self._scratch[1:]):
+            slot["header"][a:b, 0] += base
+            slot["arena"][base : base + n] = scratch[:n]
+            base += n
+        return base
+
+    def _slot_rows(self, slot: dict) -> list:
+        """Each shard's slot arguments: its rows of header, ble, meta, gains
+        and bands, and its arena (shard 0 the slot's own, the others their
+        scratch of the slot's capacity); kept per slot, for a few slots."""
+        hit = self._slot_args.get(id(slot))
+        if hit is not None and hit[0] is slot["header"] and hit[1] is slot["arena"]:
+            return hit[2]
+        cap = slot["arena"].shape[0]
+        if self._scratch[1] is None or self._scratch[1].shape[0] < cap:
+            self._scratch = [None] + [np.zeros(cap, np.int32) for _ in self._blocks[1:]]
+            self._slot_args.clear()
+        if len(self._slot_args) >= 8:
+            self._slot_args.clear()
+        i32, f32 = ctypes.c_int32, ctypes.c_float
+        rows = [(_ptr(slot["header"][a:], i32), _ptr(slot["ble"][a:], f32),
+                 _ptr(slot["meta"][a:], i32), _ptr(slot["gains"][a:], f32),
+                 _ptr(slot["bands"][a:], i32),
+                 _ptr(slot["arena"] if s == 0 else self._scratch[s], i32))
+                for s, (a, _) in enumerate(self._blocks)]
+        self._slot_args[id(slot)] = (slot["header"], slot["arena"], rows)
+        return rows
 
 
 class NativeCeltEncoder:
@@ -1009,16 +1231,18 @@ def check_plan_iy_span(slot: dict) -> np.ndarray:
     started one); callers fall back to a spectral step for that frame.
     Returns the per-stream iy word spans."""
     hdr = slot["header"]
-    n_pvq = hdr[:, 1] & 0x1FF
-    # One u32 word per pvq record; ln at [0:8], w at [8:12].
-    p = np.arange(PLAN_P_MAX, dtype=np.int64)
-    ridx = hdr[:, 0:1].astype(np.int64) + p[None, :]
+    # One u32 word per pvq record; ln at [0:8], w at [8:12].  Only a
+    # stream's first n_pvq records (at most PLAN_P_MAX) count, so only
+    # they are gathered, stream after stream.
+    n = np.minimum(hdr[:, 1] & 0x1FF, PLAN_P_MAX).astype(np.int64)
+    ends = np.cumsum(n)
+    ridx = (np.arange(int(n.sum()), dtype=np.int64)
+            + np.repeat(hdr[:, 0].astype(np.int64) - (ends - n), n))
     au32 = slot["arena"].view(np.uint32)  # >> on i32 would sign-extend
     w0 = au32[np.clip(ridx, 0, au32.shape[0] - 1)]
-    rln = (w0 & 0xFF).astype(np.int64) + 1
-    rwid = ((w0 >> 8) & 0xF).astype(np.int64)
-    bits = np.where(p[None, :] < n_pvq[:, None], rln * rwid, 0)
-    iy_words = -(-bits.sum(axis=1) // 32)
+    bits = ((w0 & 0xFF).astype(np.int64) + 1) * ((w0 >> 8) & 0xF).astype(np.int64)
+    upto = np.concatenate(([0], np.cumsum(bits)))
+    iy_words = -(-(upto[ends] - upto[ends - n]) // 32)
     if int(iy_words.max(initial=0)) > PLAN_IYW - 1:
         raise OverflowError("plan iy span exceeds executor fetch window")
     return iy_words

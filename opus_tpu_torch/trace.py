@@ -55,7 +55,7 @@ RING = 1 << 17
 
 #: The tracer's own counters (always counted).
 COUNTERS = ("graph_builds", "plc_steps_compact", "plc_steps_whole", "shadow_decodes",
-            "upload_bytes", "device_phases_missed", "spans_dropped")
+            "upload_bytes", "device_phases_missed", "spans_dropped", "plane_a_shards")
 
 Span = collections.namedtuple("Span", "id parent name step start_ns end_ns device")
 Span.__doc__ = """One record of `spans()`.  A host span: start and end on

@@ -97,6 +97,8 @@ def check_line(got: dict) -> None:
     assert got["host_cores"] >= got["host_cpus_usable"] >= 1
     assert (got["card"], got["device"], got["smoke"]) == ("cpu", "cpu", True)
     assert isinstance(got["plane_a_openmp"], bool)
+    assert 1 <= got["plane_a_shards"] <= max(1, got["host_cpus_usable"] - 1)
+    assert got["plane_a_shards"] == 1 or not got["plane_a_openmp"]
     assert 0 <= got["build_s"] < got["wall_s"]
     want = (bench.P10_UPLOAD_BYTES if got["serve_transfer_mode"] == "p10"
             else got["plan_upload_bytes_per_stream"])
