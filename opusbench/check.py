@@ -205,13 +205,13 @@ def decide(numbers: dict, limits: dict) -> tuple[bool, dict]:
 def _worker(job: dict) -> None:
     """Decode one stream's packets from step 0 with the reference and save
     its PCM at the captured steps."""
-    from .reference import decoder
+    from .reference import reference_decoder
     from .spec import Cell
 
     cell = Cell(job["cell"])
     schedule = Schedule(cell.config, cell.traffic, job["seed"])
     b, want = job["stream"], job["steps"]
-    dec, out, at = decoder(cell.config["decoder"]["channels"]), [], 0
+    dec, out, at = reference_decoder(cell.config), [], 0
     for t in range(max(want) + 1):
         pcm = dec.decode_float(schedule.packet(b, t), 960)
         while at < len(want) and want[at] == t:

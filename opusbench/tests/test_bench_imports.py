@@ -32,7 +32,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_reference_imports_nothing_of_the_program():
     files = sorted((BENCH / "reference").rglob("*.py"))
-    assert len(files) >= 30
+    assert len(files) >= 30 and BENCH / "reference" / "multistream.py" in files
     for f in files:
         assert imported(f) <= {"__future__", "copy", "dataclasses", "enum", "math", "numpy"}, f
 
@@ -51,7 +51,7 @@ def test_no_file_names_the_ported_benchmark_scripts():
 def test_a_reference_worker_loads_no_torch():
     """The check's worker processes load numpy and the reference only."""
     code = ("import sys; import opusbench.check, opusbench.reference, "
-            "opusbench.traffic.schedule; "
+            "opusbench.reference.multistream, opusbench.traffic.schedule; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'torch', 'jax', 'jaxlib', 'flax', 'opus_tpu', 'opus_tpu_torch'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=BENCH.parent, capture_output=True,
