@@ -2310,7 +2310,8 @@ def ms_serve_steps(bmd, steps: list, frames: int, keep: int = 4, sample=(),
     for t, packets in enumerate(steps):
         if captured is not None:
             captured["step"] = t
-        out = bmd.serve([packets], FRAME)
+        bmd.serve([packets], FRAME)
+        out = bmd._serve_ring.cpu().numpy().copy()  # the ring is rewritten in place
         if out.shape != (bmd.batch, FRAME, bmd.channels) or not np.isfinite(out).all():
             raise AssertionError(f"multistream serve returned {out.shape} PCM or non-finite "
                                  f"values")

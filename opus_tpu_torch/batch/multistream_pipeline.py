@@ -11,9 +11,17 @@ Two cores:
 
 * mode="celt": CELT-only elementary streams through BatchedCeltDecoder
   (stereo-shaped; a mono stream is decoded with stream_channels 1), on
-  its packed or plan serving loop;
+  its packed or plan serving loop.  Each elementary packet's ToC gives
+  its stream's CELT end band for that frame, as libopus's
+  opus_decode_frame sets CELT_SET_END_BAND from the bandwidth (NB 13, WB
+  17, SWB 19, FB 21): an RFC 7845 surround session codes its LFE as CELT
+  NB.  A packet that is not CELT-only is refused, naming its session and
+  stream;
 * mode="opus": SILK, hybrid or mixed elementary streams through the
   mixed-mode BatchedOpusDecoder.
+
+serve() leaves the sessions' PCM on the device, in `_serve_ring` [B,
+frame, channels]; decode_frames() returns it to the host.
 
 A multi-frame elementary packet (codes 1-3) is decoded as successive
 steps of one frame: the framing code never enters the decoder state, so
@@ -26,11 +34,15 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..packet import parse_packet
+from ..packet import MAX_FRAME_BYTES, parse_packet
 from .opus_pipeline import BatchedOpusDecoder
 from .pipeline import BatchedCeltDecoder
 
 MODES = ("celt", "opus")
+
+#: CELT end band by the bandwidth of a CELT-only ToC, (config - 16) >> 2:
+#: NB, WB, SWB, FB (libopus opus_decode_frame; CELT has no MB)
+CELT_END_BANDS = np.array([13, 17, 19, 21], np.int32)
 
 
 def split_multistream_packet(packet: bytes, streams: int) -> list[tuple[int, list[bytes]]]:
@@ -38,16 +50,44 @@ def split_multistream_packet(packet: bytes, streams: int) -> list[tuple[int, lis
 
     Self-delimited framing for all but the last stream; every framing
     code (0-3, CBR/VBR, padding) is accepted — multi-frame packets come
-    back as per-frame lists."""
+    back as per-frame lists.  A code-0 elementary packet (one frame, as
+    libopus's multistream encoder writes 20 ms) is read in place; any
+    other, or one whose length does not fit, goes to parse_packet, which
+    reads or refuses it."""
     out = []
     offset = 0
     for s in range(streams):
         self_delimited = s < streams - 1
+        one = _single_frame(packet, offset, self_delimited)
+        if one is not None:
+            out.append((packet[offset], [one[0]]))
+            offset = one[1]
+            continue
         parsed = parse_packet(packet[offset:], self_delimited)
         frames = parsed.frames(packet[offset:])
         out.append((packet[offset], list(frames)))
         offset += parsed.packet_offset
     return out
+
+
+def _single_frame(packet: bytes, at: int, self_delimited: bool):
+    """(frame, offset after it) of the elementary packet at `at` where it
+    is code 0: its ToC, then, self-delimited, a one- or two-byte length
+    (RFC 6716 sec. 3.2.1, appendix B), else the rest of the packet; None
+    where it is not code 0 or its length does not fit."""
+    end = len(packet)
+    if at >= end or packet[at] & 3:
+        return None
+    if not self_delimited:
+        return (packet[at + 1:], end) if end - at - 1 <= MAX_FRAME_BYTES else None
+    if at + 2 > end:
+        return None
+    n, head = packet[at + 1], at + 2
+    if n >= 252:
+        if head >= end:
+            return None
+        n, head = n + 4 * packet[head], head + 1
+    return (packet[head:head + n], head + n) if head + n <= end else None
 
 
 class BatchedMultistreamDecoder:
@@ -78,20 +118,26 @@ class BatchedMultistreamDecoder:
         self.device = torch.device(device)
         core = BatchedCeltDecoder if mode == "celt" else BatchedOpusDecoder
         self.core = core(batch * streams, 2, device=self.device)
-        # Output channel -> column of the [B, n, S * 2] elementary plane
-        # (stream s, left/right): a coupled pair's m-th channel is stream
-        # m >> 1, side m & 1; a mono stream's only channel is its left.
-        cols = np.zeros(channels, np.int64)
+        # Output channel -> (stream, left/right) of the [B*S, n, 2]
+        # elementary plane: a coupled pair's m-th channel is stream m >> 1,
+        # side m & 1; a mono stream's only channel is its left.
+        self._cols = np.zeros(channels, np.int64)
         for ch, m in enumerate(self.mapping):
             if m == 255:
                 continue
             stream, lr = (m >> 1, m & 1) if m < 2 * coupled else (coupled + m - 2 * coupled, 0)
-            cols[ch] = 2 * stream + lr
-        self._cols = torch.as_tensor(cols, device=self.device)
+            self._cols[ch] = 2 * stream + lr
         self._silent = torch.as_tensor([m == 255 for m in self.mapping], device=self.device)
+        self._any_silent = 255 in self.mapping
+        self._unmap_at: dict = {}
+        #: each elementary row's coded channels: stereo for a coupled stream
+        self._schs = np.tile(np.where(np.arange(streams) < coupled, 2, 1), batch).astype(np.int32)
+        self._serve_ring = None
 
     def _split_batch(self, packets: list[bytes]):
-        """-> (n_frames, per_session split) with a uniform frame count."""
+        """-> (ToCs [B*S], frames: for each frame f, the B*S elementary
+        frames f, in session then stream order) with a uniform frame
+        count."""
         if len(packets) != self.batch:
             raise ValueError(f"{len(packets)} packets for a batch of {self.batch}")
         per_session = [split_multistream_packet(p, self.streams) for p in packets]
@@ -100,76 +146,99 @@ class BatchedMultistreamDecoder:
             for _, frames in sess:
                 if len(frames) != nf:
                     raise ValueError("elementary streams disagree on frame count")
-        return nf, per_session
+        return ([toc for sess in per_session for toc, _ in sess],
+                [[frames[f] for sess in per_session for _, frames in sess] for f in range(nf)])
 
-    def unmap_on_device(self, pcm: torch.Tensor) -> torch.Tensor:
-        """[B*S, n, 2] -> [B, n, channels] on the device: one gather of the
-        mapped columns, silent channels 0."""
-        B, S = self.batch, self.streams
+    def _unmap_index(self, n: int) -> torch.Tensor:
+        """The flat position in the [B*S, n, 2] elementary plane of every
+        output sample [B, n, channels], made once a frame length."""
+        if n not in self._unmap_at:
+            S = self.streams
+            at = (np.arange(self.batch)[:, None, None] * (S * n * 2)
+                  + np.arange(n)[None, :, None] * 2
+                  + ((self._cols >> 1) * (n * 2) + (self._cols & 1))[None, None, :])
+            self._unmap_at[n] = torch.as_tensor(at.reshape(-1), device=self.device)
+        return self._unmap_at[n]
+
+    def unmap_on_device(self, pcm: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+        """[B*S, n, 2] -> [B, n, channels] on the device (into `out` where
+        given): one gather of the mapped samples, silent channels 0."""
         n = pcm.shape[1]
-        plane = pcm.reshape(B, S, n, 2).permute(0, 2, 1, 3).reshape(B, n, 2 * S)
-        return plane.index_select(2, self._cols).masked_fill(self._silent, 0.0)
+        if out is None:
+            out = pcm.new_empty(self.batch, n, self.channels)
+        torch.index_select(pcm.reshape(-1), 0, self._unmap_index(n), out=out.view(-1))
+        return out.masked_fill_(self._silent, 0.0) if self._any_silent else out
 
-    def _step_payloads(self, per_session, f: int):
-        """Elementary inputs for frame f of every (session, stream)."""
-        payloads, schs, fulls = [], [], []
-        for sess in per_session:
-            for s, (toc, frames) in enumerate(sess):
-                if self.mode == "opus":
-                    # Rebuild a standard code-0 packet: the framing code is
-                    # transport-only, so per-frame code-0 packets decode
-                    # identically to the original multi-frame packet.
-                    fulls.append(bytes([toc & 0xFC]) + frames[f])
-                else:
-                    payloads.append(frames[f])
-                    schs.append(2 if s < self.coupled else 1)
-        return payloads, schs, fulls
+    @staticmethod
+    def _full_packets(tocs: list, frames: list) -> list:
+        """One frame of every (session, stream) as a standard code-0
+        packet: the framing code is transport-only, so per-frame code-0
+        packets decode identically to the original multi-frame packet."""
+        return [bytes([toc & 0xFC]) + frame for toc, frame in zip(tocs, frames)]
+
+    def _end_bands(self, tocs: list) -> np.ndarray:
+        """Each (session, stream)'s CELT end band, int32 [B*S], from its
+        ToC; a ToC that is not CELT-only raises ValueError."""
+        config = np.array(tocs, np.int32) >> 3
+        bad = np.flatnonzero(config < 16)
+        if bad.size:
+            i = int(bad[0])
+            raise ValueError(f"session {i // self.streams} stream {i % self.streams}: ToC "
+                             f"config {config[i]} is not CELT-only; mode='celt' decodes CELT-only "
+                             f"elementary streams, mode='opus' SILK and hybrid ones")
+        return CELT_END_BANDS[(config - 16) >> 2]
 
     def decode_frames(self, packets: list[bytes], frame_size: int) -> np.ndarray:
         """packets: one multistream packet per session; frame_size = samples
         per FRAME (multi-frame packets return nf*frame_size samples).
         Returns pcm [batch, nf*frame_size, channels]."""
-        nf, per_session = self._split_batch(packets)
+        tocs, per_frame = self._split_batch(packets)
+        end_bands = self._end_bands(tocs) if self.mode == "celt" else None
         outs = []
-        for f in range(nf):
-            payloads, schs, fulls = self._step_payloads(per_session, f)
+        for frames in per_frame:
             if self.mode == "opus":
-                pcm = self.core.decode_frames_on_device(fulls)
+                pcm = self.core.decode_frames_on_device(self._full_packets(tocs, frames))
             else:
                 pcm = self.core.decode_frames_on_device(
-                    payloads, frame_size, stream_channels=np.array(schs, np.int32))
+                    frames, frame_size, stream_channels=self._schs, end_bands=end_bands)
             outs.append(self.unmap_on_device(pcm).cpu().numpy())
-        return np.concatenate(outs, axis=1) if nf > 1 else outs[0]
+        return np.concatenate(outs, axis=1) if len(outs) > 1 else outs[0]
 
     def serve(self, batches: list[list[bytes]], frame_size: int) -> np.ndarray:
         """Serving loop over multistream sessions: each step splits every
-        session's packet into its elementary payloads and serves the
+        session's packet into its elementary payloads (and, on the CELT
+        core, each stream's end band from its ToC) and serves the
         (B*S)-stream batch through the core's serve() (one upload and one
         serving step per frame).  Multi-frame packets become successive
-        serving steps.  Returns the final step's un-mapped pcm [batch,
-        frame_size, channels].  The tracer's spans: `split` (the packets
-        into elementary payloads), the core's serve() tree, `unmap` (the
-        gather and its fetch)."""
-        schs = None
-        elem_steps = []
-        full_steps = []
+        serving steps.  The final step's PCM is then un-mapped on the
+        device into `_serve_ring` [batch, frame_size, channels], in place,
+        and complete when serve() returns; nothing is fetched to the host.
+        Returns the core's digest of the final step.  The tracer's spans:
+        `split` (the packets into elementary payloads), the core's serve()
+        tree, `unmap` (the gather and its wait)."""
+        steps, end_bands = [], []
         with trace.span("split", step=self.core.steps_served):
             for packets in batches:
-                nf, per_session = self._split_batch(packets)
-                for f in range(nf):
-                    payloads, sch, fulls = self._step_payloads(per_session, f)
-                    if self.mode == "opus":
-                        full_steps.append(fulls)
-                    else:
-                        elem_steps.append(payloads)
-                        if schs is None:
-                            schs = np.array(sch, np.int32)
+                tocs, per_frame = self._split_batch(packets)
+                if self.mode == "opus":
+                    steps += [self._full_packets(tocs, frames) for frames in per_frame]
+                else:
+                    steps += per_frame
+                    end_bands += [self._end_bands(tocs)] * len(per_frame)
         if self.mode == "opus":
-            self.core.serve(full_steps)
+            digest = self.core.serve(steps)
         else:
-            self.core.serve(elem_steps, frame_size, stream_channels=schs)
+            digest = self.core.serve(steps, frame_size, stream_channels=self._schs,
+                                     end_bands=end_bands)
         with trace.span("unmap", step=self.core.steps_served - 1):
-            return self.unmap_on_device(self.core._serve_ring).cpu().numpy()
+            pcm = self.core._serve_ring
+            ring = self._serve_ring
+            if ring is None or ring.shape[1] != pcm.shape[1]:
+                ring = self._serve_ring = pcm.new_empty(self.batch, pcm.shape[1], self.channels)
+            self.unmap_on_device(pcm, out=ring)
+            if ring.is_cuda:
+                torch.cuda.current_stream(ring.device).synchronize()
+        return digest
 
     def final_ranges(self) -> list[int]:
         """Per-session XOR of elementary final ranges (opus multistream)."""

@@ -283,12 +283,22 @@ class BatchedCeltDecoder(ServingSlots):
             )
         return self._steps[key]
 
-    def _raw_args(self, frame_size: int, packets: list, stream_channels=None):
+    def _set_end_bands(self, end_bands) -> None:
+        """A step's CELT end band of each stream (int32 [B]; None leaves
+        them as they are) into plane A before its decode, counting the
+        streams below fullband in `band_limited_streams`."""
+        if end_bands is not None:
+            self.native.set_end_bands(end_bands)
+            limited = int((self.native.end_bands < modes.NB_E_BANDS).sum())
+            trace.count("band_limited_streams", limited)
+
+    def _raw_args(self, frame_size: int, packets: list, stream_channels=None, end_bands=None):
         """Plane A -> raw step args; only [B]-sized numpy work on the host.
 
         Returns (lm, short_mask, args) with args = (xraw, mono, ble, bound,
         periods, gains, tapsets).
         """
+        self._set_end_bands(end_bands)
         if self.transfer != "f32":
             x, ble, meta, gains = self.native.decode_batch_q15(
                 packets, frame_size, stream_channels
@@ -335,9 +345,10 @@ class BatchedCeltDecoder(ServingSlots):
         return self.decode_frames_on_device(packets, frame_size, stream_channels).cpu().numpy()
 
     def decode_frames_on_device(self, packets: list, frame_size: int,
-                                stream_channels=None) -> torch.Tensor:
-        """decode_frames with the pcm left on the device."""
-        lm, short_mask, args = self._raw_args(frame_size, packets, stream_channels)
+                                stream_channels=None, end_bands=None) -> torch.Tensor:
+        """decode_frames with the pcm left on the device; `end_bands`, None
+        or int32 [B]: each stream's CELT end band from this frame on."""
+        lm, short_mask, args = self._raw_args(frame_size, packets, stream_channels, end_bands)
         return self._dispatch(lm, short_mask, args)
 
     def run_pipelined(self, batches: list, frame_size: int):
@@ -431,7 +442,7 @@ class BatchedCeltDecoder(ServingSlots):
             return self._call_step(step if captured else eager(step), state, ring, dev_buf)
 
     def serve(self, batches: list, frame_size: int, n_slots: int = 4,
-              stream_channels=None) -> np.ndarray:
+              stream_channels=None, end_bands=None) -> np.ndarray:
         """Serving loop: per step, native plane A writes one slot, one
         host-to-device copy ships it, one serving step synthesises it.
 
@@ -442,12 +453,17 @@ class BatchedCeltDecoder(ServingSlots):
         step is the replay of its variant's CUDA graph, captured at the
         variant's first step (dsp/graphs.py).
 
+        `end_bands`, None or one int32 [B] a step: each stream's CELT end
+        band from that step's frame on (NativeBatchFrontEnd.set_end_bands);
+        None keeps them (fullband unless set).
+
         Returns the final step's digest (np[2]); the last frame's PCM stays
         on the device in `self._serve_ring` [B, frame, C].
         """
         with trace.span("serve_call", step=self.steps_served):
             if self.transfer == "plan":
-                return self._serve_plan(batches, frame_size, n_slots, stream_channels)
+                return self._serve_plan(batches, frame_size, n_slots, stream_channels,
+                                        end_bands)
             mode = self.transfer if self.transfer in PACK_BITS else "q14"
             if (not hasattr(self, "_slots") or len(self._slots) != n_slots
                     or self._slots[0]["mode"] != mode):
@@ -457,6 +473,7 @@ class BatchedCeltDecoder(ServingSlots):
             digest = None
             for t, packets in enumerate(batches):
                 with trace.span("step", step=self._next_step()):
+                    self._set_end_bands(None if end_bands is None else end_bands[t])
                     state, ring, digest = self._packed_step(
                         state, ring, packets, frame_size, self._slots[t % n_slots], dev_buf,
                         mode, stream_channels)
@@ -465,7 +482,7 @@ class BatchedCeltDecoder(ServingSlots):
             return self._wait(digest)
 
     def _serve_plan(self, batches: list, frame_size: int, n_slots: int = 4,
-                    stream_channels=None) -> np.ndarray:
+                    stream_channels=None, end_bands=None) -> np.ndarray:
         """Plan-executor serving loop (the port of the reference's
         `_serve_plan`): per step, plane A writes a plan slot, only its used
         prefix (the fixed regions and the used arena) is uploaded, and the
@@ -488,7 +505,7 @@ class BatchedCeltDecoder(ServingSlots):
             # (every step would fall back): serve the packed path directly.
             prev, self.transfer = self.transfer, "p10"
             try:
-                return self.serve(batches, frame_size, n_slots, stream_channels)
+                return self.serve(batches, frame_size, n_slots, stream_channels, end_bands)
             finally:
                 self.transfer = prev
         B = self.batch
@@ -507,6 +524,7 @@ class BatchedCeltDecoder(ServingSlots):
                 self._reuse(slot)
                 try:
                     with trace.span("plane_a"):
+                        self._set_end_bands(None if end_bands is None else end_bands[t])
                         self.native.decode_batch_plan_into(packets, frame_size, slot,
                                                            stream_channels)
                 except OverflowError:

@@ -46,7 +46,7 @@ def gather_ring(dec: BatchedCeltDecoder | BatchedOpusDecoder, group=None) -> tor
 def gather_sessions(dec: BatchedMultistreamDecoder, group=None) -> torch.Tensor:
     """The last served step's un-mapped frames of every session, [B,
     frame, channels], on every rank's device."""
-    return all_gather_rows(dec.unmap_on_device(dec.core._serve_ring), group)
+    return all_gather_rows(dec._serve_ring, group)
 
 
 def gather_final_ranges(dec, group=None) -> list[int]:

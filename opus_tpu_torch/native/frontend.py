@@ -386,6 +386,8 @@ class NativeBatchFrontEnd:
         self._states[1:] = self._states[0]
         base, row = self._states.ctypes.data, self._states.strides[0]
         self.handles = (ctypes.c_void_p * batch)(*[base + i * row for i in range(batch)])
+        #: each stream's CELT end band, as its state row holds it
+        self.end_bands = np.full(batch, self.NB, np.int32)
         self._init_shards()
         # Double-buffered output planes of decode_batch_f32/_q15.
         self._slots = [
@@ -435,6 +437,19 @@ class NativeBatchFrontEnd:
 
     def final_ranges(self) -> list:
         return [int(self.lib.celt_fe_rng(h)) for h in self.handles]
+
+    def set_end_bands(self, end_bands) -> None:
+        """Each stream's CELT end band from its next frame on, int32 [B]
+        (libopus's CELT_SET_END_BAND, which opus_decode_frame sets from a
+        packet's bandwidth: 13 NB, 17 MB and WB, 19 SWB, 21 FB).  Written
+        into the state rows of the streams whose band changed; every
+        decode entry, and every shard's library copy, reads it there."""
+        want = np.asarray(end_bands, np.int32)
+        if want.shape != (self.batch,) or ((want < 1) | (want > self.NB)).any():
+            raise ValueError(f"end bands for {self.batch} streams, each 1-{self.NB}: {want}")
+        for i in np.flatnonzero(want != self.end_bands):
+            self.lib.celt_fe_config(self.handles[i], 0, int(want[i]), -1)
+        self.end_bands[:] = want
 
     def _inputs(self, packets: list, frame_size: int, stream_channels):
         """(blob, lens, stream channels, samples at 48 kHz) of one step."""

@@ -55,7 +55,8 @@ RING = 1 << 17
 
 #: The tracer's own counters (always counted).
 COUNTERS = ("graph_builds", "plc_steps_compact", "plc_steps_whole", "shadow_decodes",
-            "upload_bytes", "device_phases_missed", "spans_dropped", "plane_a_shards")
+            "upload_bytes", "device_phases_missed", "spans_dropped", "plane_a_shards",
+            "band_limited_streams")
 
 Span = collections.namedtuple("Span", "id parent name step start_ns end_ns device")
 Span.__doc__ = """One record of `spans()`.  A host span: start and end on

@@ -95,7 +95,8 @@ def _rank_scenarios(rank: int, world: int, dev, inputs: dict) -> dict | None:
     dec.core.transfer = "plan"
     frames, ranges = [], []
     for packets in steps:
-        local = dec.serve([spec.rows(packets)], F)
+        dec.serve([spec.rows(packets)], F)
+        local = dec._serve_ring.cpu().numpy()
         got = gather_sessions(dec)
         if not np.array_equal(got[spec.start : spec.stop].numpy(), local):
             raise AssertionError("gather_sessions does not hold the rank's own un-mapped frames")
@@ -636,7 +637,11 @@ def test_sharded_multistream_regroup(sharded, traffic):
     whole = BatchedMultistreamDecoder(MS_SESSIONS, ch, streams, coupled, mapping, mode="celt",
                                       device="cpu")
     whole.core.transfer = "plan"
-    want = np.stack([whole.serve([packets], F) for packets in steps])
+    want = []
+    for packets in steps:
+        whole.serve([packets], F)
+        want.append(whole._serve_ring.numpy().copy())
+    want = np.stack(want)
     assert got["frames"].shape == (len(steps), MS_SESSIONS, F, ch)
     np.testing.assert_allclose(got["frames"], want, rtol=0, atol=PCM_TOL)
     assert got["ranges"] == ranges

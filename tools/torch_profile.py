@@ -220,7 +220,8 @@ def mixed_breakdown(batches, where: str, name: str) -> None:
 def multistream_breakdown(name: str, where: str) -> None:
     """breakdown() of a multistream serve() run (chip_smoke MS_PATHS[name],
     every fixture step): the split into elementary payloads and the
-    un-mapping with its fetch are spans of their own."""
+    un-mapping on the card (no fetch: serve() leaves the sessions' PCM in
+    `_serve_ring`) are spans of their own."""
     import chip_smoke as cs
 
     from opus_tpu_torch.batch.multistream_pipeline import BatchedMultistreamDecoder
