@@ -273,6 +273,7 @@ W = 2048  # post-filter row: DECODE_BUFFER_SIZE samples of history + frame
 PF_CASES = [(3, 12), (3, 60), (3, 120), (3, 240), (2, 60), (1, 12), (0, 12), (0, 240)]
 PF_REL_TOL = 1e-6  # the reference's own gate (tests/test_pallas_pf.py)
 ROT_ABS_TOL = 2e-6  # the reference's scalar gate (tests/test_pallas_rot.py)
+BW_ABS_TOL = 1e-5  # the executor's port-vs-JAX tolerance (tests/test_torch_plan_exec.py)
 ROT_LENGTHS = [1, 1, 2, 3, 5, 8, 21, 44, 87, 176]
 CPU_PCM_TOL = 1e-4  # card run vs the port's CPU run, streams 0-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -996,9 +997,10 @@ def same_layout(t):
 
 def recording_inputs(captured: dict):
     """Context manager: while it is open, the main path's rotation passes,
-    post-filter calls and concealment scans run as before, and the inputs
-    of the first two rotation passes and of the first post-filter call are
-    copied into captured["rotation"] and captured["postfilter"], those of
+    band walks, post-filter calls and concealment scans run as before, and
+    the inputs of the first two rotation passes, of the first band walk and
+    of the first post-filter call are copied into captured["rotation"],
+    captured["band_walk"] and captured["postfilter"], those of
     the first pitch_track call of each (rows, lags) into
     captured["pitch"] and of the first lpc_synth call of each row count
     into captured["synth"].  On the card a serving step is replayed from
@@ -1011,9 +1013,9 @@ def recording_inputs(captured: dict):
 
     from opus_tpu_torch.dsp import plan_exec, plc_exec, synthesis
 
-    real_rot, real_pf = plan_exec.rot_pass, synthesis.postfilter
+    real_rot, real_pf, real_bw = plan_exec.rot_pass, synthesis.postfilter, plan_exec.band_walk
     real_pt, real_ls = plc_exec.pitch_track, plc_exec.lpc_synth
-    captured.update(rotation=[], postfilter=[], pitch={}, synth={}, step=0)
+    captured.update(rotation=[], postfilter=[], band_walk=[], pitch={}, synth={}, step=0)
     captured["from"] = {}
 
     def eager_call(kernel: str) -> bool:
@@ -1026,6 +1028,11 @@ def recording_inputs(captured: dict):
         if len(captured["rotation"]) < 2 and eager_call("rotation"):
             captured["rotation"].append([a.clone() for a in args])
         return real_rot(*args)
+
+    def bw(*args):
+        if not captured["band_walk"] and eager_call("band_walk"):
+            captured["band_walk"].append([a.clone() for a in args])
+        return real_bw(*args)
 
     def pf(y, hist, n, lm, periods, gains, tapsets, chunk):
         if not captured["postfilter"] and eager_call("postfilter"):
@@ -1048,11 +1055,13 @@ def recording_inputs(captured: dict):
     @contextlib.contextmanager
     def patched():
         plan_exec.rot_pass, synthesis.postfilter = rot, pf
+        plan_exec.band_walk = bw
         plc_exec.pitch_track, plc_exec.lpc_synth = pt, ls
         try:
             yield
         finally:
             plan_exec.rot_pass, synthesis.postfilter = real_rot, real_pf
+            plan_exec.band_walk = real_bw
             plc_exec.pitch_track, plc_exec.lpc_synth = real_pt, real_ls
 
     return patched()
@@ -1103,6 +1112,69 @@ def rotation_on_real_chains(captured: list, where: str, label: str = "plan step"
     return {"max_abs_err": max_abs, "times": times}
 
 
+def band_walk_bytes(args) -> int:
+    """Bytes one band walk needs: each row's planes and plan words read
+    once, its spectrum written once, and each (band, slot, direction) of
+    the transform terms that some row selects read once."""
+    from opus_tpu_torch.dsp import band_walk as bw
+
+    x = args[0]
+    rows, lm = x.shape[0], bw._lm_of(x.shape[1] // 2)
+    planes = sum(a.element_size() * a[0].numel() for a in args)
+    tables = bw.walk_tables(lm, x.device)
+    e = tables.e
+    words = args[1].to(torch.int64) & 0xFFFFFFFF
+    codes = [(((words[:, (24 * i) >> 5] >> ((24 * i) & 31))
+               | (words[:, min(((24 * i) >> 5) + 1, 15)] << (32 - ((24 * i) & 31)))) & 31)
+             for i in range(21)]
+    terms = sum(2 * bw.TERMS * int(e[i + 1] - e[i]) * 8
+                * len(set(tables.slot_lut[i][codes[i]].tolist()) - {0}) for i in range(21))
+    return rows * (planes + x[0].numel() * 4) + terms
+
+
+def band_walk_times(args) -> dict:
+    """ms of the wrapper's whole call, of the bare kernel launch into an
+    output allocated in advance, and of the plain version; three copies of
+    the inputs and the output cycle."""
+    from opus_tpu_torch.dsp import band_walk as bw
+
+    tables = bw.walk_tables(bw._lm_of(args[0].shape[1] // 2), args[0].device)
+    sets = [[a.clone() for a in args] for _ in range(3)]
+    outs = [torch.empty(a[0].shape[0], 2, a[0].shape[1] // 2, device=a[0].device) for a in sets]
+    prepared = [bw._kernel_args(*a, tables, o) for a, o in zip(sets, outs)]
+    return {"ms": best_ms(cycled(lambda a: bw.band_walk(*a), sets), 40),
+            "kernel_ms": best_ms(bare("opus_band_walk", prepared), 40),
+            "plain_ms": cuda_ms(cycled(lambda a: bw._band_walk_ref(*a), sets), 3)}
+
+
+def band_walk_on_real_inputs(args: list, where: str, label: str) -> dict:
+    """The band-walk kernel vs _band_walk_ref on recorded main-path inputs
+    (a plan step's first eager run), its times there and its byte bound."""
+    from opus_tpu_torch.dsp.band_walk import _band_walk_ref, band_walk
+
+    got, ref = band_walk(*args), _band_walk_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    x, meta, header = args[0], args[2], args[3]
+    rows, n2 = x.shape
+    stereo = int((meta[:, 3] == 2).sum())
+    records = int((header[:, 1] >> 18).sum())
+    folds = int(args[5].sum())
+    print(f"kernel band_walk on {label} rows={rows} n2={n2}: {stereo} stereo rows, {folds} fold "
+          f"bins, {records} anti-collapse records: max_abs_err={err}")
+    if not bool(torch.isfinite(got).all()) or not err < BW_ABS_TOL:
+        raise AssertionError(f"band-walk kernel disagrees with plain version on the {label}'s "
+                             f"inputs: {err}")
+    t = band_walk_times(args)
+    t["bytes"] = band_walk_bytes(args)
+    t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"time band_walk rows={rows} n2={n2} {label}: wrapper_ms={t['ms']} "
+          f"kernel_alone_ms={t['kernel_ms']} plain_ms={t['plain_ms']} bytes_needed={t['bytes']} "
+          f"byte_bound_ms={t['bound_ms']} (the serial 21-band chain, not the bytes, bounds it) "
+          f"({where})")
+    return {"max_abs_err": err, "times": t}
+
+
 def postfilter_on_real_inputs(rec: tuple, where: str, label: str = "plan step 1") -> dict:
     """The post-filter kernel vs _postfilter_ref on the first plan step's
     recorded inputs (periods and tapsets are the strided views of `meta`
@@ -1135,7 +1207,8 @@ def postfilter_on_real_inputs(rec: tuple, where: str, label: str = "plan step 1"
 def check_launches(launches: dict, chunks: list, plan_steps: int, variants: list,
                    flagged: list | None) -> int:
     """The main-path launch gates: the post-filter once per step with an
-    active filter, the rotation twice per plan step, 2 pitch_track + 1
+    active filter, the rotation twice and the band walk once per plan step,
+    2 pitch_track + 1
     lpc_synth per concealing step; with `flagged` (streams flagged for
     device concealment, per step), each step's variant must match it.
     Returns the number of concealing steps."""
@@ -1147,6 +1220,9 @@ def check_launches(launches: dict, chunks: list, plan_steps: int, variants: list
     if launches["rotation"] != 2 * plan_steps:
         raise AssertionError(f"rotation kernel launched {launches['rotation']} times over "
                              f"{plan_steps} plan steps (2 passes each)")
+    if launches["band_walk"] != plan_steps:
+        raise AssertionError(f"band-walk kernel launched {launches['band_walk']} times over "
+                             f"{plan_steps} plan steps (once each)")
     if launches["pitch_track"] != 2 * plc_steps or launches["lpc_synth"] != plc_steps:
         raise AssertionError(f"concealment kernels launched {launches['pitch_track']} "
                              f"(pitch_track) and {launches['lpc_synth']} (lpc_synth) times "
@@ -1236,6 +1312,8 @@ def main_path(dev, name: str, batches, where: str) -> dict:
     real = None
     if name == "plan":
         real = {"rotation": rotation_on_real_chains(captured["rotation"], where),
+                "band_walk": band_walk_on_real_inputs(captured["band_walk"][0], where,
+                                                      "plan step"),
                 "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where)}
     elif name == "plan-loss":
         real = {"plc": plc_on_real_inputs(captured, where)}
@@ -1484,6 +1562,7 @@ def mixed_path(dev, name: str, batches, where: str) -> dict:
     if name == "mixed":
         label = f"mixed plan step 1 ({got['hybrid'][0]} hybrid streams)"
         real = {"rotation": rotation_on_real_chains(captured["rotation"], where, label),
+                "band_walk": band_walk_on_real_inputs(captured["band_walk"][0], where, label),
                 "postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where, label)}
 
     cols = [[pk[i] for i in keep] for pk in batches]
@@ -1860,7 +1939,8 @@ def pipelined_phase(dev, clean, mixed, where: str) -> dict:
         if tuple(pcm.shape) != (B, FRAME, C) or not bool(torch.isfinite(pcm).all()):
             raise AssertionError(f"{name} returned {tuple(pcm.shape)} PCM or non-finite values")
         if (not len(steps) <= launches["postfilter"] <= 2 * len(steps)
-                or launches["rotation"] or launches["pitch_track"] or launches["lpc_synth"]):
+                or launches["rotation"] or launches["band_walk"] or launches["pitch_track"]
+                or launches["lpc_synth"]):
             raise AssertionError(f"{name}: kernel launches {launches} over {len(steps)} steps")
         cpu = make(n, "cpu")
         want = run(cpu, [pk[:n] for pk in steps])
@@ -1971,7 +2051,7 @@ def bench_phase(where: str) -> dict:
             or line["serve_transfer_mode"] not in ("plan", "p10")
             or not all(r and min(r) > 0 for r in runs)
             or not all(v and v > 0 for v in line["peak_memory_bytes"].values())
-            or not (launches["postfilter"] and launches["rotation"])):
+            or not (launches["postfilter"] and launches["rotation"] and launches["band_walk"])):
         raise AssertionError(f"bench --smoke: exit {rc}, {len(lines)} lines, keys missing, "
                              f"null or not above 0 {bad}, fallbacks {fallbacks}, launches "
                              f"{launches}")
@@ -1979,7 +2059,7 @@ def bench_phase(where: str) -> dict:
 
 
 def kernel_counters() -> dict:
-    """The six kernel wrappers by kernel name; each counts its launches."""
+    """The seven kernel wrappers by kernel name; each counts its launches."""
     from opus_tpu_torch.dryrun import kernel_wrappers
 
     return kernel_wrappers()
@@ -2384,6 +2464,7 @@ def ms_path(dev, name: str, where: str) -> dict:
         real = {"postfilter": postfilter_on_real_inputs(captured["postfilter"][0], where, label)}
         if transfer == "plan":
             real["rotation"] = rotation_on_real_chains(captured["rotation"], where, label)
+            real["band_walk"] = band_walk_on_real_inputs(captured["band_walk"][0], where, label)
     out = {"launches": launches, "chunks": [], "pf_chunks": got["chunks"], "pcm_err": None,
            "real": real, "final_ring": got["last"], "final_ranges": got["ranges"][-1],
            "sample": got["sample"], "layout": layout, "steps": steps}
@@ -3442,6 +3523,8 @@ def main() -> int:
     n2 = 1920
     rot_bound, rot_by = bound_ms(6 * B * n2 * 4, 12 * B * n2)
     rot_real = plan["real"]["rotation"]
+    bw_t = plan["real"]["band_walk"]["times"]  # the band walk on the plan step's inputs
+    bw_ms = paths["multistream"]["real"]["band_walk"]["times"]
     # The concealment scans at the first lossy step's shapes (the compact
     # variant: 128 pitch rows, fine search; 256 synthesis rows).
     plc_real = paths["plan-loss"]["real"]["plc"]
@@ -3473,6 +3556,19 @@ def main() -> int:
          "kernel_ms": rot["times"]["kernel_ms"],
          **{f"{key}_real_{p}": rot_real["times"][p][key]
             for p in ("A", "B") for key in ("ms", "kernel_ms", "plain_ms")}},
+        {"name": "band_walk", "route": "cuda", "source": "opus_tpu_torch/csrc/band_walk.cu",
+         "replaces": None, "replaces_note": "the plan executor's band walk, stereo merge and "
+                                           "anti-collapse, XLA operations in the reference",
+         **launches("band_walk"),
+         "max_abs_err": max(real_errs("band_walk").values()),
+         "max_abs_err_real_by_path": real_errs("band_walk"),
+         "ms": bw_t["ms"], "kernel_ms": bw_t["kernel_ms"], "plain_ms": bw_t["plain_ms"],
+         "bound_ms": bw_t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "bound_note": f"bytes needed {bw_t['bytes']} at 3.35 TB/s; the serial 21-band chain, "
+                       "not the bytes, bounds it",
+         "shape": f"B={B} lm=3 (plan step)",
+         "ms_multistream": bw_ms["ms"], "kernel_ms_multistream": bw_ms["kernel_ms"],
+         "plain_ms_multistream": bw_ms["plain_ms"], "bound_ms_multistream": bw_ms["bound_ms"]},
         {"name": "pitch_track", "route": "cuda", "source": "opus_tpu_torch/csrc/plc.cu",
          "replaces": "opus_tpu/dsp/plc_exec.py:85", **launches("pitch_track"),
          "max_abs_err": 0, "ms": pt_t["ms"], "plain_ms": pt_t["plain_ms"],

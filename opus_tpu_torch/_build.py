@@ -86,6 +86,7 @@ SIGNATURES = {
     "opus_lpc_synth": [_P, _P, _P, _P, _I, _I, _P],
     "opus_silk_synth": [_P] * 10 + [_I] * 6 + [_P],
     "opus_pvq_search": [_P] * 6 + [_I] * 12 + [_P],
+    "opus_band_walk": [_P] * 5 + [_LL] + [_P] * 12 + [_I, _I, _P],
 }
 
 

@@ -378,6 +378,7 @@ def _mixed_phase(rank: int, dp: int, tp: int, groups: tuple, dev, steps: list) -
 def kernel_wrappers() -> dict:
     """The kernel wrappers of the package by kernel name; each counts the
     launches of its kernel in `.launches` (on a CUDA tensor only)."""
+    from .dsp.band_walk import band_walk
     from .dsp.plc_scan import lpc_synth, pitch_track
     from .dsp.postfilter import postfilter
     from .dsp.pvq_search import pvq_search
@@ -385,7 +386,8 @@ def kernel_wrappers() -> dict:
     from .dsp.silk_synthesis import silk_synthesis_step
 
     return {"postfilter": postfilter, "rotation": rot_pass, "pitch_track": pitch_track,
-            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step, "pvq_search": pvq_search}
+            "lpc_synth": lpc_synth, "silk_synth": silk_synthesis_step, "pvq_search": pvq_search,
+            "band_walk": band_walk}
 
 
 @contextlib.contextmanager

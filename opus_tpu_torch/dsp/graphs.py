@@ -40,13 +40,14 @@ import time
 import torch
 
 from .. import trace
+from .band_walk import band_walk
 from .plc_scan import lpc_synth, pitch_track
 from .postfilter import postfilter
 from .rotation import rot_pass
 from .synthesis import SynthState
 
 #: The kernel wrappers a serving step launches, each with a `launches` count.
-COUNTED = (postfilter, rot_pass, pitch_track, lpc_synth)
+COUNTED = (postfilter, rot_pass, pitch_track, lpc_synth, band_walk)
 
 
 class SharedPool:

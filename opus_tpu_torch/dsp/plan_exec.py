@@ -8,8 +8,9 @@ seeds, per-band transform/stereo records and sparse anti-collapse
 records.  The executor replays everything the reference decoder does
 after the pulse decode: normalisation, the spreading rotation (two
 exp_rotation1 passes, through the rotation kernel, dsp/rotation.py),
-fold/noise filling, interleave/haar undo, stereo merge and anti-collapse,
-for the whole batch at once.
+noise filling, then the band walk (fold filling, interleave/haar undo,
+stereo merge and anti-collapse, through the band-walk kernel,
+dsp/band_walk.py), for the whole batch at once.
 
 The TPU formulations that existed only because the TPU has no fast
 gather or scatter are direct indexing here, with equal output as the
@@ -20,10 +21,11 @@ check) instead of interval one-hot matmuls, per-leaf sums are
 scatter-adds (exact: integer sums of squares stay below 2^24), the
 pulse-word fetch is a two-word gather and the chain permutation of the
 stride-2 rotation pass is a gather.  The fold leaves' float energy sums
-are differences of a float64 prefix sum over the band at each leaf run's
-ends: a float scatter-add's atomics would sum in another order on every
-call (a step captured as a CUDA graph must equal its eager run bit for
-bit), and a one-hot product's order would change with the size class.
+(in the band walk) are differences of a float64 prefix sum over the band
+at each leaf run's ends: a float scatter-add's atomics would sum in
+another order on every call (a step captured as a CUDA graph must equal
+its eager run bit for bit), and a one-hot product's order would change
+with the size class.
 Integers ride in int64: the wire's u32 words are masked to 32 bits, and
 products that the reference takes mod 2^32 are split so that no int64
 product overflows.
@@ -35,20 +37,11 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..celt import modes
 from ..native.frontend import PLAN_A_MAX, PLAN_IYW
-from .plan_tables import (
-    EPSILON,
-    NB,
-    _LCG_MAX,
-    _TF_CFGS,
-    _lcg_jump_table,
-    _plan_band_of_bin,
-    _valid_cfg,
-    band_transforms,
-)
+from .band_walk import band_walk, walk_tables
+from .plan_tables import EPSILON, NB, _LCG_MAX, _lcg_jump_table, _plan_band_of_bin
 from .rotation import rot_pass
 from .tables import on_device
 
@@ -105,52 +98,6 @@ def _leaf_plane(start, length, n2: int):
     return leaf, cov, torch.where(cov, last, 0)
 
 
-def _band_stacks(lm: int, device):
-    """Per band (forward stack, undo stack), and the slot table.
-
-    A stack is [nb, S*nb] f32, block s = T_s^T: slot 0 the identity, then
-    the transform of each config reachable in the band, then zeros, so
-    that one matmul applies every candidate and a gather picks each
-    stream's.  The slot table [NB, 32] maps a band's config code
-    rec | td<<2 | lb<<4 to its slot; a config the band cannot take maps
-    to the zero slot (the reference's selected matrix is 0 there)."""
-    m = 1 << lm
-    e = modes.E_BANDS.astype(np.int64) * m
-    cfgs = [(rec, td, lb) for lb in (True, False) for rec, td in _TF_CFGS[lm][lb]
-            if (rec, td, lb) != (0, 0, True)]
-    stacks = []
-    lut = np.zeros((NB, 32), np.int64)
-    for bi in range(NB):
-        nb_ = int(e[bi + 1] - e[bi])
-        eye = np.eye(nb_, dtype=np.float32)
-        slot_of = {16: 0}  # identity: rec 0, td 0, longblocks
-        fwd, und = [eye], [eye]
-        for rec, td, lb in cfgs:
-            if _valid_cfg(nb_, 1 if lb else m, rec, td):
-                fw, un = band_transforms(nb_, 1 if lb else m, rec, td, lb)
-                slot_of[rec | td << 2 | int(lb) << 4] = len(fwd)
-                fwd.append(fw)
-                und.append(un)
-        lut[bi] = len(fwd)
-        for code, slot in slot_of.items():
-            lut[bi, code] = slot
-        zero = np.zeros_like(eye)
-        cat = lambda ts: torch.as_tensor(  # noqa: E731
-            np.ascontiguousarray(np.concatenate([t.T for t in ts + [zero]], axis=1)),
-            device=device)
-        stacks.append((cat(fwd), cat(und)))
-    return stacks, torch.as_tensor(lut, device=device)
-
-
-def _apply_selected(xb, stack, sel):
-    """xb [B, 2, nb] through each stream's selected transform: y[j] =
-    sum_w xb[w] T[j, w] with T = slot sel[b] of `stack`."""
-    B, _, nb_ = xb.shape
-    S = stack.shape[1] // nb_
-    ys = torch.matmul(xb.reshape(B * 2, nb_), stack).reshape(B, 2, S, nb_)
-    return ys.gather(2, sel[:, None, None, None].expand(B, 2, 1, nb_))[:, :, 0]
-
-
 def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
                        iyw: int = PLAN_IYW, *, device):
     """Build the plan executor for one frame shape.
@@ -177,42 +124,24 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
     m = 1 << lm
     n = m * modes.SHORT_MDCT_SIZE
     e = modes.E_BANDS.astype(np.int64) * m
-    norm_len = int(e[NB - 1])
     n2 = 2 * n
-    stacks, slot_lut = _band_stacks(lm, device)
+    walk_tables(lm, device)  # the band walk's tables, uploaded before any capture
     lcg_tbl = on_device(_lcg_jump_table, device)
     e_dev = torch.as_tensor(e, device=device)
     bb = torch.as_tensor(_plan_band_of_bin(lm).astype(np.int64), device=device)
-    in_band = torch.arange(n, device=device) < int(e[NB])
     widths = e[1:] - e[:-1]
     width_p = torch.as_tensor(widths, device=device)[bb]  # width of each bin's band
-    eff_max = torch.as_tensor(np.maximum(norm_len - widths, 0), device=device)
     st2_thr = torch.tensor([t * t + t for t in range(1, 15)], device=device)
-    band_ar = [torch.arange(int(w), device=device) for w in widths]
-    popcount = torch.tensor([bin(v).count("1") for v in range(256)], device=device)
-    oh = torch.zeros(n, NB, dtype=torch.float32, device=device)
-    oh[torch.arange(int(e[NB]), device=device), bb[: int(e[NB])]] = 1.0
     factor_tbl = torch.tensor([15, 15, 10, 5], dtype=torch.int64, device=device)
     # band start, width and plane offset (plane * width - start) of each bin
     blo = e_dev[bb]
     bhi = e_dev[(bb + 1).clamp_max(NB)]
     plane_off = torch.arange(2, device=device)[:, None] * (bhi - blo) - blo
-    w0_word = torch.tensor([(24 * i) >> 5 for i in range(NB)], device=device)
-    w0_sh = torch.tensor([(24 * i) & 31 for i in range(NB)], device=device)
-    eff_word = torch.tensor([(11 * i) >> 5 for i in range(NB)], device=device)
-    eff_sh = torch.tensor([(11 * i) & 31 for i in range(NB)], device=device)
     s0 = p_max
     s1 = s0 + 3 * f_max
     s2 = s1 + 2 * PLAN_A_MAX
     wins = (p_max, 3 * f_max, 2 * PLAN_A_MAX, iyw)
     win_off = torch.cat([torch.arange(w, device=device) for w in wins])
-
-    def bitfields(words, word_idx, shift, nwords, bits):
-        """Fields of `bits` bits at (word_idx, shift) of a little-endian
-        u32 word stream [B, nwords] (int64) -> [B, NB]."""
-        lo = words[:, word_idx] >> shift
-        hi = words[:, (word_idx + 1).clamp_max(nwords - 1)] << (32 - shift)
-        return (lo | hi) & ((1 << bits) - 1)
 
     @torch.no_grad()
     def executor(header, bands, meta, arena_i32, used=None):
@@ -411,20 +340,7 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
         kB = torch.where(in_rot, rel2, 0)
         x = rot_pass(x.contiguous(), ccB.contiguous(), ssB.contiguous(), i32(kB), i32(mB))
 
-        # ---- band walk ----
-        X = x.reshape(B, 2, n)
-        bw0 = bitfields(bands[:, :16].to(torch.int64) & _U32, w0_word, w0_sh, 16, 24)
-        beff = bitfields(bands[:, 16:24].to(torch.int64) & _U32, eff_word, eff_sh, 8, 11)
-        rec_b = bw0 & 3
-        td_b = (bw0 >> 2) & 3
-        lb_b = (bw0 >> 4) & 1
-        dual_b = (bw0 >> 5) & 1
-        isw_b = (bw0 >> 6) & 1
-        inv_b = (bw0 >> 7) & 1
-        imid_b = ((bw0 >> 8) & 0x7FFF).to(torch.float32) / 32768.0
-        ster_b = (bw0 >> 23) & 1
-
-        sel = slot_lut[torch.arange(NB, device=dev), rec_b | td_b << 2 | lb_b << 4]
+        # ---- fold planes of the band walk ----
         fold_v = (fcov & (fnoise_p == 0)).reshape(B, 2, n)
         # fold source index into [ld2 plane 0 | plane 1] of the band
         sr = torch.minimum((fsrc_p + frel).reshape(B, 2, n).clamp_min(0), width_p - 1)
@@ -443,123 +359,8 @@ def make_plan_executor(lm: int, batch: int, p_max: int = 224, f_max: int = 64,
         # t = frel + 1 seeds); garbage outside fold leaves is masked.
         dith_v = torch.where((sv & 0x8000) != 0, 1.0 / 256.0, -1.0 / 256.0).reshape(B, 2, n)
 
-        norm = torch.zeros((B, 2, norm_len), dtype=torch.float32, device=dev)
-        # Hybrid streams (start band 17): plane A emits eff fold offsets
-        # relative to its norm buffer (which starts at e[17]); the norm
-        # here is absolute, so hybrid streams shift eff by e[17].
-        hyb = meta[:, 4] == 17
-        e17m = int(e[17])
-        effv = torch.minimum((beff + torch.where(hyb, e17m, 0)[:, None]).clamp_min(0), eff_max)
-        isw_m = isw_b == 1
-        dual_m = dual_b == 1
-
-        for i in range(NB):
-            lo_, hi_ = int(e[i]), int(e[i + 1])
-            nb_ = hi_ - lo_
-            if i == 18:
-                # special_hybrid_folding (bands.py): duplicate band 17's
-                # folding data so band 18 can fold; plane 1 only while
-                # dual stereo was still on at band 17.
-                n1h = int(e[18] - e[17])
-                n2h = int(e[19] - e[18])
-                a0 = e17m + 2 * n1h - n2h
-                b0, b1 = e17m + n1h, e17m + n2h
-                hmask = torch.stack([hyb, hyb & (dual_b[:, 17] == 1)], dim=1)[:, :, None]
-                norm[:, :, b0:b1] = torch.where(hmask, norm[:, :, a0 : a0 + (b1 - b0)],
-                                                norm[:, :, b0:b1])
-            t_fwd, t_und = stacks[i]
-
-            # intensity switch: average the norm planes below this band
-            if lo_ > 0:
-                swm = isw_m[:, i, None]
-                pref = 0.5 * (norm[:, 0, :lo_] + norm[:, 1, :lo_])
-                norm[:, 0, :lo_] = torch.where(swm, pref, norm[:, 0, :lo_])
-
-            # fold sources: the norm window at eff, forward-transformed
-            widx = (effv[:, i, None, None] + band_ar[i]).expand(B, 2, nb_)
-            ld2 = _apply_selected(norm.gather(2, widx), t_fwd, sel[:, i])
-            # fold fill: value = ld2[src plane][srcrel + rel] + dither
-            srcw = srcw_v[:, :, lo_:hi_].reshape(B, 2 * nb_)
-            lval = ld2.reshape(B, 2 * nb_).gather(1, srcw).reshape(B, 2, nb_)
-            has_fold = fold_v[:, :, lo_:hi_]
-            fill = torch.where(has_fold, lval + dith_v[:, :, lo_:hi_], 0.0)
-            # per-leaf renormalisation over this band's positions
-            csum = F.pad(torch.cumsum((fill * fill).reshape(B, 2 * nb_).double(), 1), (1, 0))
-            ends = [r[:, :, lo_:hi_].reshape(B, 2 * nb_) for r in (run_lo, run_hi)]
-            leafsum = (csum.gather(1, ends[1]) - csum.gather(1, ends[0])).to(torch.float32)
-            scale = fgain_v[:, :, lo_:hi_] / torch.sqrt(EPSILON + leafsum.reshape(B, 2, nb_))
-            xb = torch.where(has_fold, fill * scale, X[:, :, lo_:hi_])
-
-            # undo transform; the stereo merge waits until after the walk
-            # (only the pre-merge values feed later bands, through norm)
-            xn = _apply_selected(xb, t_und, sel[:, i])
-            X[:, :, lo_:hi_] = xn
-            # norm write (pre-merge)
-            if i < NB - 1 and hi_ <= norm_len:
-                sc = float(np.float32(math.sqrt(nb_)))
-                norm[:, 0, lo_:hi_] = sc * xn[:, 0]
-                norm[:, 1, lo_:hi_] = torch.where(dual_m[:, i, None], sc * xn[:, 1],
-                                                  norm[:, 1, lo_:hi_])
-
-        # ---- stereo merge and inversion, every band at once ----
-        x0 = X[:, 0]
-        y0 = X[:, 1]
-        sums = torch.matmul(torch.stack([y0 * x0, y0 * y0], dim=1), oh)  # [B, 2, NB]
-        xp = imid_b * sums[:, 0]
-        sdd = sums[:, 1]
-        el = imid_b * imid_b + sdd - 2 * xp
-        er = imid_b * imid_b + sdd + 2 * xp
-        degen = ((er < 6e-4) | (el < 6e-4))[:, bb]
-        lg = (1.0 / torch.sqrt(el.clamp_min(1e-30)))[:, bb]
-        rg = (1.0 / torch.sqrt(er.clamp_min(1e-30)))[:, bb]
-        l_ = imid_b[:, bb] * x0
-        mx = torch.where(degen, x0, lg * (l_ - y0))
-        my = torch.where(degen, x0, rg * (l_ + y0))
-        do_m = ((ster_b == 1) & c2[:, None])[:, bb] & in_band
-        iv = ((inv_b == 1) & c2[:, None])[:, bb] & in_band
-        my = torch.where(do_m, my, y0)
-        X = torch.stack([torch.where(do_m, mx, x0), torch.where(iv, -my, my)], dim=1)
-
-        # ---- anti-collapse ----
-        avalid = torch.arange(PLAN_A_MAX, device=dev) < n_ac[:, None]
-        arec = merged[:, s1:s2].reshape(B, PLAN_A_MAX, 2)
-        a0 = torch.where(avalid, arec[:, :, 0], 0)
-        a1 = torch.where(avalid, arec[:, :, 1], 0)
-        ab = a0 & 0x1F
-        ach = (a0 >> 5) & 1
-        amask = (a0 >> 8) & 0xFF
-        ar = _f16_to_f32(a0 >> 16)
-        # Records into [B, NB, 2] (at most one per band and channel).
-        slot = torch.where(avalid & (ab < NB), ab * 2 + ach, 2 * NB)
-        r_bc = torch.zeros(B, 2 * NB + 1, device=dev).scatter_add_(1, slot, ar)
-        ints = torch.zeros(3, B, 2 * NB + 1, dtype=torch.int64, device=dev)
-        ints[0].scatter_add_(1, slot, a1)
-        ints[1].scatter_add_(1, slot, amask)
-        ints[2].scatter_add_(1, slot, torch.ones_like(slot))
-
-        def bcast(tbl):  # [B, 2*NB(+1)] by (band, ch) -> [B, 2, n], 0 above e[NB]
-            t = tbl[:, : 2 * NB].reshape(B, NB, 2)[:, bb, :].permute(0, 2, 1)
-            return torch.where(in_band, t, 0)
-
-        has_bc = ints[2, :, : 2 * NB].reshape(B, NB, 2) > 0
-        msk = bcast(ints[1])
-        has = bcast(ints[2]) > 0
-        rr = bcast(r_bc)
-        sd = bcast(ints[0]) & _U32
-        posn = torch.arange(n, device=dev)
-        off_in = posn - e_dev[bb]
-        kblk = off_in & (m - 1)
-        jj = off_in >> lm
-        n0_b = (e_dev[bb + 1] - e_dev[bb]) >> lm
-        cleared = ((msk >> kblk) & 1) == 0
-        # rank of a cleared block k = cleared blocks below k
-        rank = kblk - popcount[msk & ((1 << kblk) - 1)]
-        sv_ = _lcg_jump((rank * n0_b + jj + 1).clamp(0, _LCG_MAX - 1), sd, lcg_tbl)
-        val = torch.where((sv_ & 0x8000) != 0, rr, -rr)
-        newx = torch.where(has & cleared, val, X)
-        # renormalise bands with any record
-        s2b = torch.matmul(newx * newx, oh)  # [B, 2, NB]
-        scl = torch.where(has_bc.permute(0, 2, 1), 1.0 / torch.sqrt(EPSILON + s2b), 1.0)
-        return newx * torch.matmul(scl, oh.T)
+        # ---- band walk, stereo merge and anti-collapse (dsp/band_walk.py) ----
+        return band_walk(x, bands, meta, header, merged[:, s1:s2], fold_v, srcw_v, run_lo,
+                         run_hi, fgain_v, dith_v)
 
     return executor

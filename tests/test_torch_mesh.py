@@ -435,7 +435,7 @@ def test_uncounted_restores_every_launch_count():
             raise RuntimeError
         assert [fn.launches for fn in counters.values()] == list(range(len(counters)))
         assert set(counters) == {"postfilter", "rotation", "pitch_track", "lpc_synth",
-                                 "silk_synth", "pvq_search"}
+                                 "silk_synth", "pvq_search", "band_walk"}
     finally:
         for k, fn in counters.items():
             fn.launches = saved[k]

@@ -58,7 +58,7 @@ sys.path.insert(0, str(ROOT))
 
 #: The symbols of the kernels in opus_tpu_torch/csrc/.
 KERNELS = ("postfilter_kernel", "rot_pass_kernel", "pitch_track_kernel", "lpc_synth_kernel",
-           "silk_synth_kernel")
+           "silk_synth_kernel", "band_walk_kernel")
 #: Profiler ranges put around functions of the port while profiling.
 RANGES = ("silk_resample",)
 
